@@ -1,0 +1,19 @@
+"""Device selection: the port runs on the card unless the caller asks for
+the CPU, and never drops to the CPU on its own."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """``torch.device`` for `device`; raises when a CUDA device is asked
+    for and none is present."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} asked for but torch.cuda.is_available() is "
+            f"False; pass --device cpu to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    return dev
