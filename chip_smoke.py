@@ -17,8 +17,16 @@ Phases, one JSON line each on stdout:
    the production configuration (bf16 SR store, lean adafactor, fused
    readout), then resumes for one more epoch; the kernel's launch count
    must equal the train steps; then ms/step over staged steps;
-4. a ``{"kernels": [...]}`` line;
-5. last line: ``{"ok": true, "device": {...}}``.
+4. vtt_main_path: ``cli.train --eid <5 sessions>`` trains the VTT flagship
+   (``configs/{model,train}/vtt_video.yaml``, full width, 10,264,188
+   parameters) on five synthetic 128x128 sessions of 668, 600, 500, 400
+   and 300 neurons for 2 epochs at batch 16, then resumes for one more;
+5. vtt_card_vs_cpu: one trial through the VTT forward on the card (bf16 and
+   f32 models) against the same weights in f32 on the CPU;
+6. vtt_step_time: ms/step of the staged VTT train step (CUDA events),
+   frames/s, peak memory, model TFLOP/step and its share of the bf16 peak;
+7. a ``{"kernels": [...]}`` line;
+8. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure is an uncaught exception and a non-zero exit. Without a CUDA
 card, or without the rest of the repository beside it, it exits non-zero
@@ -38,9 +46,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data sheet (dense): HBM bandwidth and non-tensor-core f32 rate
+# H100 SXM data sheet (dense): HBM bandwidth, non-tensor-core f32 rate and
+# the bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 # main path (bench.py's production Linear workload)
 T_FRAMES, HEIGHT, WIDTH = 120, 128, 128
@@ -51,6 +61,18 @@ KERNEL_M, KERNEL_N = T_FRAMES * HEIGHT * WIDTH, 256
 WRAP_M = (1 << 24) + 37      # row*N+col passes 2^32 at N=256
 SEEDS = (0, 7, (1 << 32) - 1)
 REPS = 3                     # timing windows per measurement
+
+# VTT flagship (bench.py:bench_vtt_flagship): 5 sessions, N_max = 668
+VTT_NEURONS = (668, 600, 500, 400, 300)
+VTT_EIDS = tuple(f"vtt{i}sess0" for i in range(len(VTT_NEURONS)))
+VTT_TRIALS = 16              # per session: 12 train, 2 val, 2 test
+VTT_PARAMS = 10_264_188
+VTT_STEPS = 20               # staged steps per timing window
+# card vs CPU, max |card - cpu| / max |cpu| on one trial: a bf16 model
+# rounds at ~0.5% (CPU estimate at 10 frames: 0.5%); an f32 model on the
+# card differs from the CPU only by summation order unless TF32 is on
+VTT_BF16_REL_BOUND = 2e-2
+VTT_F32_REL_BOUND = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -377,6 +399,201 @@ def phase_step_time(work: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 4-6: the VTT flagship
+# ---------------------------------------------------------------------------
+
+def vtt_fixture(data: Path) -> None:
+    from video_spike_torch.cli import make_fixture
+
+    for i, (eid, n) in enumerate(zip(VTT_EIDS, VTT_NEURONS)):
+        make_fixture.main(["--out", str(data), "--eid", eid,
+                           "--n_trials", str(VTT_TRIALS),
+                           "--n_neurons", str(n), "--seed", str(100 + i),
+                           "--height", str(HEIGHT), "--width", str(WIDTH)])
+
+
+def vtt_args(work: Path, log_dir: str) -> list:
+    return ["--model_config", str(ROOT / "configs/model/vtt_video.yaml"),
+            "--train_config", str(ROOT / "configs/train/vtt_video.yaml"),
+            "--eid", ",".join(VTT_EIDS), "--data_dir", str(work / "vtt_data"),
+            "--log_dir", str(work / log_dir), "--batch_size", str(BATCH),
+            "--device", "cuda"]
+
+
+def vtt_model_config() -> dict:
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "configs/model/vtt_video.yaml").read_text())
+    cfg.update(n_sessions=len(VTT_NEURONS), max_neurons=max(VTT_NEURONS))
+    return cfg
+
+
+def vtt_forward_flops(cfg: dict, batch: int, image: int = HEIGHT,
+                      channels: int = 1) -> int:
+    """Matmul FLOPs of one VTT forward from the configuration's shapes
+    (patchify, qkv, scores, P·V, proj and MLP of every block, the
+    resample and the session heads)."""
+    d, m = cfg["hidden_size"], cfg["intermediate_size"]
+    p = cfg["patch_size"]
+    t = len(range(0, cfg["t_frames"], cfg.get("frame_stride", 1)))
+    tokens = (image // p) ** 2
+
+    def block(rows: int, seq: int) -> int:
+        n = rows * seq
+        return (2 * n * d * 3 * d + 2 * 2 * rows * seq * seq * d
+                + 2 * n * d * d + 2 * 2 * n * d * m)
+
+    return (2 * batch * t * tokens * p * p * channels * d
+            + cfg["frame_depth"] * block(batch * t, tokens)
+            + cfg["temporal_depth"] * block(batch, t)
+            + 2 * batch * t * cfg["t_bins"] * d
+            + 2 * batch * cfg["t_bins"] * d * cfg["max_neurons"])
+
+
+def phase_vtt_main_path(work: Path) -> dict:
+    import numpy as np
+    import torch
+
+    from video_spike_torch.cli import train as train_cli
+    from video_spike_torch.ops import fused_readout as fr
+
+    vtt_fixture(work / "vtt_data")
+    base = vtt_args(work, "vtt_logs")
+    torch.cuda.reset_peak_memory_stats()
+    fr.apply_scaled_outer.launches = 0
+    t0 = time.perf_counter()
+    res = train_cli.main(base + ["--num_epochs", "2"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    fused_launches = fr.apply_scaled_outer.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if res["n_params"] != VTT_PARAMS:
+        raise AssertionError(f"VTT has {res['n_params']} params, "
+                             f"want {VTT_PARAMS}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on")
+    losses = res["train_losses"]
+    if len(losses) != 2 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train losses: {losses}")
+    evals = res["eval_history"]
+    if not all(math.isfinite(e[k]) for e in evals
+               for k in ("eval_bps", "eval_rsquared")):
+        raise AssertionError(f"eval metrics not finite: {evals}")
+    test = res["test"]
+    if set(test["per_session"]) != set(VTT_EIDS) or not all(
+            math.isfinite(r[k]) for r in test["per_session"].values()
+            for k in ("bps", "rsquared")):
+        raise AssertionError(f"test per session: {test['per_session']}")
+    log_dir = Path(res["log_dir"])
+    artifacts = {name: (log_dir / name).exists()
+                 for name in ("model_best.pt", "model_last.pt",
+                              "test_results.npy")}
+    if not all(artifacts.values()):
+        raise AssertionError(f"missing artifacts: {artifacts}")
+    saved = np.load(log_dir / "test_results.npy", allow_pickle=True).item()
+    if set(saved["per_session"]) != set(VTT_EIDS):
+        raise AssertionError(f"test_results.npy: {saved}")
+
+    res2 = train_cli.main(base + ["--num_epochs", "3", "--resume"])
+    torch.cuda.synchronize()
+    resumed_steps = res2["global_step"] - res["global_step"]
+    if res2["start_epoch"] != 2 or resumed_steps <= 0 \
+            or not math.isfinite(res2["train_losses"][0]):
+        raise AssertionError(f"resume: start_epoch {res2['start_epoch']}, "
+                             f"steps {resumed_steps}, losses "
+                             f"{res2['train_losses']}")
+    out = {"n_params": res["n_params"], "train_steps": res["global_step"],
+           "train_losses": losses, "eval": evals,
+           "best_eval_bps": res["best_eval_bps"],
+           "test_bps": test["test_bps"], "test_rsquared": test["test_rsquared"],
+           "artifacts": artifacts, "train_seconds": train_s,
+           "peak_mem_gb": peak_gb, "allow_tf32": False,
+           "fused_readout_launches": fused_launches,
+           "resume_start_epoch": res2["start_epoch"],
+           "resume_steps": resumed_steps,
+           "resume_train_loss": res2["train_losses"][0]}
+    emit("vtt_main_path", **out)
+    return out
+
+
+def phase_vtt_card_vs_cpu() -> dict:
+    """One trial through the VTT forward on the card, in bf16 (the
+    production dtype) and in f32, against the same weights in f32 on the
+    CPU; the error is max |card - cpu| / max |cpu|."""
+    import numpy as np
+    import torch
+
+    from video_spike_torch.convert import load_into_model
+    from video_spike_torch.models.vtt import VideoTemporalTransformer
+
+    cfg = vtt_model_config()
+    cpu = VideoTemporalTransformer.from_config(cfg, dtype=torch.float32)
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    weights = dict(cpu.named_parameters())
+    rng = np.random.default_rng(1)
+    video = torch.from_numpy(rng.integers(
+        0, 255, (1, T_FRAMES, 1, HEIGHT, WIDTH), dtype=np.uint8))
+    sids = torch.tensor([3])
+    with torch.no_grad():
+        ref = cpu(video, sids)
+        errs = {}
+        for name, dtype in (("bf16", torch.bfloat16),
+                            ("f32", torch.float32)):
+            card = VideoTemporalTransformer.from_config(
+                cfg, dtype=dtype, device="cuda")
+            load_into_model(card, weights)
+            got = card(video.cuda(), sids.cuda()).cpu()
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"{name}: {tuple(got.shape)} or "
+                                     f"not finite")
+            errs[name] = float((got - ref).abs().max() / ref.abs().max())
+    out = {"shape": list(ref.shape), "max_rel_err_bf16": errs["bf16"],
+           "bound_bf16": VTT_BF16_REL_BOUND, "max_rel_err_f32": errs["f32"],
+           "bound_f32": VTT_F32_REL_BOUND}
+    emit("vtt_card_vs_cpu", **out)
+    if errs["bf16"] > VTT_BF16_REL_BOUND or errs["f32"] > VTT_F32_REL_BOUND:
+        raise AssertionError(f"VTT card vs CPU beyond its bound: {out}")
+    return out
+
+
+def phase_vtt_step_time(work: Path) -> dict:
+    """ms/step of the staged VTT train step at batch 16: CUDA events over
+    REPS windows of VTT_STEPS steps (the median and every window), through
+    the trainer the CLI builds."""
+    import numpy as np
+    import torch
+
+    from video_spike_torch.cli import train as train_cli
+    from video_spike_torch.core.cli import get_args
+
+    trainer = train_cli.build_trainer(get_args(vtt_args(work, "vtt_timing")))
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_epoch()                         # stages data, warms up
+    idx = np.random.default_rng(0).permutation(trainer._n_train)[:BATCH]
+    windows = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(VTT_STEPS):
+            trainer.staged_step(idx, BATCH)
+        end.record()
+        torch.cuda.synchronize()
+        windows.append(start.elapsed_time(end) / VTT_STEPS)
+    ms = statistics.median(windows)
+    tflop = 3 * vtt_forward_flops(vtt_model_config(), BATCH) / 1e12
+    out = {"ms_per_step": ms, "ms_per_step_windows": windows,
+           "steps_per_window": VTT_STEPS, "batch": BATCH,
+           "frames_per_s": BATCH * T_FRAMES / (ms / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "model_tflop_per_step": tflop,
+           "bf16_peak_share": tflop * 1e12 / (ms / 1e3) / BF16_FLOP_PER_S}
+    emit("vtt_step_time", **out)
+    return out
+
+
 def main() -> int:
     if not (ROOT / "video_spike_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -395,6 +612,9 @@ def main() -> int:
         work = Path(tmp)
         main_path = phase_main_path(work)
         phase_step_time(work)
+        phase_vtt_main_path(work)
+        phase_vtt_card_vs_cpu()
+        phase_vtt_step_time(work)
     kernel["launches"] = main_path["launches"]
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {

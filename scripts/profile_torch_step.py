@@ -1,12 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of one fused Linear train step goes on the card.
+"""Where the time of one train step goes on the card.
 
-    python3 scripts/profile_torch_step.py [--steps 10] [--out DIR]
+    python3 scripts/profile_torch_step.py [--model linear|vtt] [--steps 10]
+        [--out DIR]
 
-Builds the production trainer through ``video_spike_torch.cli.train`` (full
-width: 120x128x128 uint8 video, first Dense 1,966,080 x 256 in a bf16 SR
-store, lean adafactor, fused readout) on a synthetic 40-trial session,
-warms up, then runs ``torch.profiler`` (CPU + CUDA activities) over
+Builds a trainer through ``video_spike_torch.cli.train`` at full width, as
+``chip_smoke.py`` drives it:
+
+- ``linear`` (the default): the production fused Linear step
+  (120x128x128 uint8 video, first Dense 1,966,080 x 256 in a bf16 SR
+  store, lean adafactor, fused readout) on a synthetic 40-trial session;
+- ``vtt``: the VTT flagship step (``configs/{model,train}/vtt_video.yaml``,
+  AdamW) at batch 16 on five synthetic sessions of up to 668 neurons.
+
+It warms up, then runs ``torch.profiler`` (CPU + CUDA activities) over
 ``--steps`` staged steps. Prints one JSON line: wall ms/step (with the
 profiler on), the summed device time of every kernel per step, the
 device's busy share (kernel time / wall time), kernel launches per step,
@@ -30,6 +37,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def main() -> int:
     p = argparse.ArgumentParser()
+    p.add_argument("--model", choices=("linear", "vtt"), default="linear")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--out", type=str,
                    default=str(ROOT / "profile_out"))
@@ -41,6 +49,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_step.py needs a CUDA card", file=sys.stderr)
         return 2
+    import numpy as np
+
     import chip_smoke
     from video_spike_torch.cli import make_fixture
     from video_spike_torch.cli import train as train_cli
@@ -50,24 +60,38 @@ def main() -> int:
     out.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="vst_prof_") as tmp:
         work = Path(tmp)
-        make_fixture.main(["--out", str(work / "data"), "--eid", "profeid00",
-                           "--n_trials", str(chip_smoke.N_TRIALS),
-                           "--n_neurons", str(chip_smoke.N_NEURONS)])
-        trainer = train_cli.build_trainer(get_args(
-            ["--model_config", str(ROOT / "configs/model/linear_video.yaml"),
-             "--train_config", str(chip_smoke._train_yaml(work)),
-             "--eid", "profeid00", "--data_dir", str(work / "data"),
-             "--log_dir", str(work / "logs"),
-             "--batch_size", str(chip_smoke.BATCH), "--device", "cuda"]))
-        for _ in range(2):
+        if args.model == "vtt":
+            chip_smoke.vtt_fixture(work / "vtt_data")
+            trainer = train_cli.build_trainer(get_args(
+                chip_smoke.vtt_args(work, "logs")))
             trainer.train_epoch()                 # stage + warm up
+            idx = np.random.default_rng(0).permutation(
+                trainer._n_train)[:chip_smoke.BATCH]
+
+            def run():
+                trainer.staged_step(idx, chip_smoke.BATCH)
+        else:
+            make_fixture.main(["--out", str(work / "data"),
+                               "--eid", "profeid00",
+                               "--n_trials", str(chip_smoke.N_TRIALS),
+                               "--n_neurons", str(chip_smoke.N_NEURONS)])
+            trainer = train_cli.build_trainer(get_args(
+                ["--model_config",
+                 str(ROOT / "configs/model/linear_video.yaml"),
+                 "--train_config", str(chip_smoke._train_yaml(work)),
+                 "--eid", "profeid00", "--data_dir", str(work / "data"),
+                 "--log_dir", str(work / "logs"),
+                 "--batch_size", str(chip_smoke.BATCH), "--device", "cuda"]))
+            trainer.train_epoch()                 # stage + warm up
+            run = trainer.train_epoch
+        run()
         torch.cuda.synchronize()
         step0 = trainer.global_step
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             while trainer.global_step - step0 < args.steps:
-                trainer.train_epoch()
+                run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         steps = trainer.global_step - step0
@@ -93,6 +117,7 @@ def main() -> int:
         sort_by=self_attr, row_limit=80))
     prof.export_chrome_trace(str(out / "trace.json"))
     print(json.dumps({
+        "model": args.model,
         "steps": steps,
         "wall_ms_per_step": wall * 1e3 / steps,
         "device_ms_per_step": device_us / 1e3 / steps,

@@ -245,8 +245,10 @@ def test_cli_rejects_what_this_slice_leaves_out(tiny, tmp_path):
     from video_spike_torch.cli import train as train_cli
 
     args = _cli_args(tiny, tmp_path, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.main([a if a != EID else "a,b" for a in args])
+    for eid in (EID, f"{EID},{EID}"):       # one session, a session list
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train_cli.main([a if a != EID else eid for a in args]
+                           + ["--save_plot"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train_cli.main(args[:-2] + ["--device", "cuda"])

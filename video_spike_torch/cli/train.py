@@ -1,4 +1,4 @@
-"""Supervised end-to-end training entry point (single session).
+"""Supervised end-to-end training entry point.
 
 CLI parity with the reference's ``src/train.py:24-107`` (the ``train.sh``
 path) and with ``video_spike_tpu/cli/train.py``, plus ``--device``:
@@ -10,11 +10,16 @@ path) and with ``video_spike_tpu/cli/train.py``, plus ``--device``:
 
 Flow: config merge -> seed -> 80/10/10 trial split -> loaders -> metadata
 probe -> model from registry on the device -> optimizer + OneCycle ->
-Poisson NLL -> trainer. Runs on ``cuda`` unless ``--device cpu`` is given;
-asking for ``cuda`` without a card raises.
+Poisson NLL -> trainer. ``--eid all`` (the sessions of ``data/eid.txt``) or
+a comma list ``--eid e1,e2,...`` trains the multi-session flagship
+(``configs/model/vtt_video.yaml``) instead, sized from the probed sessions.
+Runs on ``cuda`` unless ``--device cpu`` is given; asking for ``cuda``
+without a card raises.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 from video_spike_torch.core.cli import get_args
 from video_spike_torch.core.config import config_from_kwargs, update_config
@@ -28,10 +33,13 @@ from video_spike_torch.data.dataset import (
     split_dataset,
 )
 from video_spike_torch.train.base import BaseTrainer
+from video_spike_torch.train.multisession import MultiSessionTrainer
 
 
 def build_trainer(args):
-    """Config, data, model and trainer for one session, from parsed args."""
+    """Config, data, model and trainer from parsed args: a
+    ``BaseTrainer`` for one session, a ``MultiSessionTrainer`` for
+    ``--eid all`` or a comma list."""
     log = make_logger(header="[train]")
     device = resolve_device(args.device)
     kwargs = {"model": f"include:{args.model_config}"}
@@ -47,11 +55,9 @@ def build_trainer(args):
         config["training"]["train_batch_size"] = args.batch_size
     config["save_plot"] = bool(args.save_plot)
 
-    if args.eid == "all" or "," in args.eid:
-        raise NotImplementedError(
-            "multi-session training (--eid all or a comma list) is not "
-            "ported yet; see ROADMAP.md Queue A item 8 (VTT flagship)")
     set_seed(config.seed)
+    if args.eid == "all" or "," in args.eid:
+        return _build_multisession(args, config, log, device)
 
     split = split_dataset(config.dirs.data_dir, eid=args.eid,
                           seed=config.seed)
@@ -78,6 +84,27 @@ def build_trainer(args):
         log_dir=args.log_dir,
         device=device,
     )
+
+
+def _build_multisession(args, config, log, device):
+    if args.eid == "all":
+        eids = [line.strip() for line in Path("data/eid.txt").read_text()
+                .splitlines() if line.strip()]
+    else:
+        eids = [e for e in args.eid.split(",") if e]
+    log.info(f"multi-session training over {len(eids)} sessions")
+    trainer = MultiSessionTrainer(
+        model=None, config=config, eids=eids,
+        data_dir=config.dirs.data_dir, log_dir=args.log_dir,
+        seed=config.seed, device=device)
+    # size the model from the probed sessions, then build it
+    model_cfg = dict(config.model)
+    model_cfg["n_sessions"] = len(eids)
+    model_cfg["max_neurons"] = trainer.max_neurons
+    model_ctor = NAME2MODEL[config.model.get("model_class",
+                                             "VideoTransformer")]
+    trainer.model = model_ctor.from_config(model_cfg, device=device)
+    return trainer
 
 
 def main(argv=None):

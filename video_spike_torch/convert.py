@@ -11,10 +11,15 @@ Optimizer states:
 - ``FusedReadoutState(count, row, col)`` <-> the port's namedtuple;
 - optax ``adafactor`` chain state ``(FactoredState(count, v_row, v_col, v),
   ScaleByScheduleState(count) | EmptyState(), EmptyState())`` <-> the port's
-  ``Adafactor`` state dict. Back-conversion returns plain nested tuples and
-  dicts in the optax structure's flatten order, so
-  ``jax.tree.unflatten(jax.tree.structure(optax_state), jax.tree.leaves(x))``
-  rebuilds the optax object on the JAX side.
+  ``Adafactor`` state dict;
+- optax ``adamw`` chain state ``(ScaleByAdamState(count, mu, nu),
+  EmptyState(), ScaleByScheduleState(count) | EmptyState())`` <-> the port's
+  ``AdamW`` state dict.
+
+Back-conversion returns plain nested tuples and dicts in the optax
+structure's flatten order, so
+``jax.tree.unflatten(jax.tree.structure(optax_state), jax.tree.leaves(x))``
+rebuilds the optax object on the JAX side.
 
 Imports neither JAX nor the JAX package; numpy bf16 arrays carry the
 ``ml_dtypes`` bfloat16 dtype, which is imported only to build one.
@@ -142,3 +147,19 @@ def adafactor_state_to_optax(state: Mapping, schedule: bool = True) -> tuple:
     factored = (count, torch_to_flax(state["v_row"]),
                 torch_to_flax(state["v_col"]), torch_to_flax(state["v"]))
     return (factored, (count,) if schedule else (), ())
+
+
+def adamw_state_from_optax(state, device=None) -> dict:
+    """optax adamw chain state -> the port's ``AdamW`` state."""
+    count, mu, nu = state[0]
+    return {"count": int(np.asarray(count)),
+            "mu": flax_to_torch(mu, device), "nu": flax_to_torch(nu, device)}
+
+
+def adamw_state_to_optax(state: Mapping, schedule: bool = True) -> tuple:
+    """The port's ``AdamW`` state -> plain nested tuples in optax's order
+    (``schedule``: the learning rate was a schedule, whose count fills the
+    chain's last slot)."""
+    count = np.asarray(state["count"], np.int32)
+    adam = (count, torch_to_flax(state["mu"]), torch_to_flax(state["nu"]))
+    return (adam, (), (count,) if schedule else ())

@@ -1,8 +1,9 @@
 """Model registry mapping config names to constructors.
 
 Parity with ``NAME2MODEL`` in the reference (``src/utils/utils.py:28-34``).
-The port has only the Linear family so far; every other name the JAX
-package registers raises and names the ROADMAP item that ports it.
+The port has the Linear family and the VTT flagship so far; every other
+name the JAX package registers raises and names the ROADMAP item that ports
+it.
 """
 
 from __future__ import annotations
@@ -12,11 +13,11 @@ from typing import Callable, Dict
 
 _LAZY: Dict[str, str] = {
     "Linear": "video_spike_torch.models.linear:LinearModel",
+    "VideoTransformer": "video_spike_torch.models.vtt:VideoTemporalTransformer",
 }
 
 # model_class -> ROADMAP.md Queue A item that ports it
 _NOT_PORTED: Dict[str, str] = {
-    "VideoTransformer": "Queue A item 8 (VTT flagship)",
     "ContrastViT": "Queue A item 10 (SSL)",
     "ContrastViTMAE": "Queue A item 10 (SSL)",
     "MAE": "Queue A item 10 (SSL)",

@@ -30,6 +30,16 @@ from video_spike_torch.ops.fused_readout import dense, preprocess_flat
 _TRUNC_STD = 0.87962566103423978
 
 
+def lecun_normal_(t: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> None:
+    """flax ``lecun_normal`` in place: variance 1/fan_in, truncated at two
+    standard deviations."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
+
+
 class Dense(nn.Module):
     """``flax.linen.Dense`` with an (in, out) kernel; the compute dtype is
     the caller's (``dense`` casts both operands)."""
@@ -42,11 +52,8 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features, **kw))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        fan_in = self.kernel.shape[0]
-        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+        lecun_normal_(self.kernel, self.kernel.shape[0], generator)
         with torch.no_grad():
-            nn.init.trunc_normal_(self.kernel, 0.0, std, -2.0 * std,
-                                  2.0 * std, generator=generator)
             self.bias.zero_()
 
 
