@@ -25,8 +25,26 @@ Phases, one JSON line each on stdout:
    f32 models) against the same weights in f32 on the CPU;
 6. vtt_step_time: ms/step of the staged VTT train step (CUDA events),
    frames/s, peak memory, model TFLOP/step and its share of the bf16 peak;
-7. a ``{"kernels": [...]}`` line;
-8. last line: ``{"ok": true, "device": {...}}``.
+7. rrr_main_path: ``cli.create_eid_data --input_mod me`` then
+   ``cli.train_rrr --device cuda`` on a synthetic session of 668 neurons and
+   80 trials, and the same fit on the CPU, whose mean bps must agree;
+8. ssl_main_path: ``cli.create_eid_data`` whisker-video features of a
+   40-trial session (4,800 pretrain frames, kept in memory: the card's
+   machine has no ``h5py``), then ContrastViTMAE pretraining at full width
+   (``configs/model/vit_mae/vit_mae.yaml``, 111,002,116 parameters,
+   ``configs/train/vmae_video.yaml``, batch 128 triplets = 384 frames of
+   144×144): a first run stopped mid-epoch at step 20, then
+   ``cli.pretrain --resume`` to step 60 with two nested-RRR validations,
+   then ``cli.test --model cm``;
+9. ssl_card_vs_cpu: the ContrastViTMAE forward on the card (bf16 and f32)
+   against the same weights in f32 on the CPU with the same mask noise, and
+   ``device_frame_transform`` on the card against the CPU at 106×160 and
+   64×96;
+10. ssl_step_time: ms/step of the staged SSL train step (frame cache live),
+    frames/s, peak memory, model TFLOP/step and its share of the bf16 peak;
+11. a ``{"kernels": [...]}`` line (the fused readout runs on the Linear
+    path only; the VTT, RRR and SSL paths must launch it 0 times);
+12. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure is an uncaught exception and a non-zero exit. Without a CUDA
 card, or without the rest of the repository beside it, it exits non-zero
@@ -35,6 +53,8 @@ and prints no result. Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import statistics
@@ -73,6 +93,37 @@ VTT_STEPS = 20               # staged steps per timing window
 # card differs from the CPU only by summation order unless TF32 is on
 VTT_BF16_REL_BOUND = 2e-2
 VTT_F32_REL_BOUND = 1e-4
+
+# RRR (cli/train_rrr.py on motion energy): one session, 64 train trials
+RRR_EID = "rrrsess00"
+RRR_NEURONS = 668
+RRR_TRIALS = 80
+# mean co-bps of the card's fit against the CPU's: float32 ALS solves with
+# TF32 off; the normal equations are ill-conditioned, so the two orders of
+# summation may part in the 4th decimal, not more
+RRR_CPU_BPS_BOUND = 1e-3
+
+# SSL (cli/pretrain.py --model cm): configs/model/vit_mae/vit_mae.yaml +
+# configs/train/vmae_video.yaml at batch 128 triplets (bench.py:103-148)
+SSL_EID = "sslsess00"
+SSL_TRIALS = 40              # 32 train, 4 val, 4 test; 4,800 frames
+SSL_NEURONS = 668
+SSL_BATCH = 128
+SSL_PARAMS = 111_002_116
+SSL_FIRST_STEPS = 20         # the first run stops mid-epoch (38 batches)
+SSL_MAX_STEPS = 60           # the resumed run validates at 38 and 60
+SSL_STEPS = 10               # staged steps per timing window
+SSL_CARD_FRAMES = 4          # frames in the card-vs-CPU forward
+# card vs CPU on z and the recon loss, max |card - cpu| / max |cpu|: a bf16
+# model rounds at ~0.5-0.8% (CPU bf16 against CPU f32 at full width: 0.53%
+# on z, 0.04% on the loss, 0.84% on z at mask 0); f32 differs by summation
+# order only, with TF32 off
+SSL_BF16_REL_BOUND = 2e-2
+SSL_F32_REL_BOUND = 1e-4
+# antialiased resize, card vs CPU, in [-1, 1] units: the card's kernel
+# forms its taps in another order (measured 1.21e-5 at 106x160 on an H100);
+# 3e-5 is under 1% of one uint8 level (2/255 in these units)
+RESIZE_ABS_BOUND = 3e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -594,6 +645,325 @@ def phase_vtt_step_time(work: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: RRR
+# ---------------------------------------------------------------------------
+
+def _rrr_args() -> list:
+    return ["--model_config", str(ROOT / "configs/model/linear_me.yaml"),
+            "--train_config", str(ROOT / "configs/train/rrr.yaml")]
+
+
+def phase_rrr_main_path(work: Path) -> dict:
+    """``cli.create_eid_data --input_mod me`` and ``cli.train_rrr`` on the
+    card, then the same fit on the CPU. The CLIs write ``data/...`` and
+    ``me_result.npy`` relative to the working directory."""
+    import numpy as np
+    import torch
+
+    from video_spike_torch.cli import create_eid_data, make_fixture, train_rrr
+    from video_spike_torch.ops import fused_readout as fr
+
+    run = work / "rrr"
+    (run / "data").mkdir(parents=True)
+    (run / "data/eid.txt").write_text(f"{RRR_EID}\n")
+    make_fixture.main(["--out", str(run / "fixture"), "--eid", RRR_EID,
+                       "--n_trials", str(RRR_TRIALS),
+                       "--n_neurons", str(RRR_NEURONS),
+                       "--height", "32", "--width", "32"])
+    args = _rrr_args() + ["--input_mod", "me"]
+    with contextlib.chdir(run):
+        create_eid_data.main(args + ["--data_dir", str(run / "fixture")])
+        fr.apply_scaled_outer.launches = 0
+        t0 = time.perf_counter()
+        card = train_rrr.main(args + ["--device", "cuda"])[RRR_EID]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = fr.apply_scaled_outer.launches
+        if not (run / "me_result.npy").exists():
+            raise AssertionError("me_result.npy not written")
+        cpu = train_rrr.main(args + ["--device", "cpu"])[RRR_EID]
+    bps, r2 = np.asarray(card["co_bps"]), np.asarray(card["r2"])
+    if bps.shape != (RRR_NEURONS,) or not np.isfinite(np.nanmean(bps)) \
+            or not np.isfinite(np.nanmean(r2)):
+        raise AssertionError(f"RRR co-bps / R2 not finite: {bps.shape}")
+    mean_card = float(np.nanmean(bps))
+    mean_cpu = float(np.nanmean(cpu["co_bps"]))
+    out = {"neurons": RRR_NEURONS, "trials": RRR_TRIALS,
+           "mean_co_bps": mean_card, "mean_r2": float(np.nanmean(r2)),
+           "finite_neurons": int(np.isfinite(bps).sum()),
+           "cpu_mean_co_bps": mean_cpu,
+           "card_minus_cpu": mean_card - mean_cpu,
+           "bound": RRR_CPU_BPS_BOUND, "fit_seconds": seconds,
+           "fused_readout_launches": launches}
+    emit("rrr_main_path", **out)
+    if abs(mean_card - mean_cpu) > RRR_CPU_BPS_BOUND or launches:
+        raise AssertionError(f"RRR card vs CPU or launches: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 8-10: SSL
+# ---------------------------------------------------------------------------
+
+def ssl_args(work: Path, log_dir: str, max_steps: int) -> list:
+    return ["--model_config", str(ROOT / "configs/model/vit_mae/vit_mae.yaml"),
+            "--train_config", str(ROOT / "configs/train/vmae_video.yaml"),
+            "--eid", SSL_EID, "--model", "cm",
+            "--batch_size", str(SSL_BATCH), "--max_steps", str(max_steps),
+            "--log_dir", str(work / log_dir), "--device", "cuda"]
+
+
+def ssl_data(work: Path) -> dict:
+    """A synthetic 40-trial session's whisker-video features, built by
+    ``cli.create_eid_data`` and kept in memory in the h5's layout."""
+    from video_spike_torch.cli import create_eid_data, make_fixture
+
+    (work / "data").mkdir(parents=True, exist_ok=True)
+    (work / "data/eid.txt").write_text(f"{SSL_EID}\n")
+    make_fixture.main(["--out", str(work / "fixture"), "--eid", SSL_EID,
+                       "--n_trials", str(SSL_TRIALS),
+                       "--n_neurons", str(SSL_NEURONS),
+                       "--height", "32", "--width", "32"])
+    with contextlib.chdir(work):
+        _, raw = create_eid_data.build(
+            _rrr_args() + ["--input_mod", "whisker-video",
+                           "--data_dir", str(work / "fixture")])
+    return create_eid_data.split_dict(raw)
+
+
+def _free_card() -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def vit_mae_forward_flops(cfg: dict, frames: int) -> int:
+    """Matmul FLOPs of one ViT-MAE forward at the config's mask ratio:
+    patch embedding of every patch, the encoder over the kept patches +
+    CLS, the decoder embedding, the decoder over every patch + CLS, the
+    pixel head and the projection."""
+    p, c = cfg["patch_size"], cfg["num_channels"]
+    d, dd = cfg["hidden_size"], cfg["decoder_hidden_size"]
+    L = (cfg["image_size"] // p) ** 2
+    enc_seq = int(L * (1 - cfg["mask_ratio"])) + 1
+    dec_seq = L + 1
+
+    def block(seq: int, dim: int, mlp: int) -> int:
+        n = frames * seq
+        return (2 * n * dim * 3 * dim + 2 * 2 * frames * seq * seq * dim
+                + 2 * n * dim * dim + 2 * 2 * n * dim * mlp)
+
+    return (2 * frames * L * p * p * c * d
+            + cfg["num_hidden_layers"] * block(enc_seq, d,
+                                               cfg["intermediate_size"])
+            + 2 * frames * enc_seq * d * dd
+            + cfg["decoder_num_hidden_layers"] * block(
+                dec_seq, dd, cfg["decoder_intermediate_size"])
+            + 2 * frames * dec_seq * dd * p * p * c
+            + 2 * frames * d * cfg["embed_size"])
+
+
+def phase_ssl_main_path(work: Path) -> tuple:
+    """A first pretraining run stopped mid-epoch at step 20 (the state a
+    preempted run leaves), then ``cli.pretrain --resume`` to step 60 and
+    ``cli.test``. Returns (the phase's numbers, the features)."""
+    import numpy as np
+    import torch
+
+    from video_spike_torch.cli import pretrain, test
+    from video_spike_torch.ops import fused_readout as fr
+
+    run = work / "ssl"
+    data = ssl_data(run)
+    n_frames = sum(data[SSL_EID][f"{s}_X"].shape[0]
+                   * data[SSL_EID][f"{s}_X"].shape[1]
+                   for s in ("train", "val", "test"))
+    args = ssl_args(run, "logs", SSL_MAX_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    fr.apply_scaled_outer.launches = 0
+    with contextlib.chdir(run):
+        _, trainer, _, _ = pretrain.build_trainer(args, data)
+        trainer.max_steps = SSL_FIRST_STEPS
+        t0 = time.perf_counter()
+        trainer.fit()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        first = {"n_params": trainer.n_params,
+                 "losses": list(trainer.train_losses),
+                 "val": list(trainer.val_history),
+                 "frame_cache": trainer._frame_cache is not None}
+        log_dir = Path(trainer.log_dir)
+        del trainer
+        _free_card()
+        t0 = time.perf_counter()
+        res = pretrain.main(args + ["--resume"], data=data)
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        (log_dir.parent / "40000").symlink_to(log_dir)
+        test_bps = test.main(args, data=data)
+        embeddings = np.load(res["path"], allow_pickle=True).item()[SSL_EID]
+    launches = fr.apply_scaled_outer.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _free_card()
+    losses = first["losses"] + res["train_losses"]
+    vals = [v["val_bps"] for v in first["val"] + res["val_history"]]
+    artifacts = {name: (log_dir / name).exists()
+                 for name in ("best_model.pt", "best_model.meta.json",
+                              "last_model.pt", "last_model.sampler.json")}
+    artifacts[res["path"]] = (run / res["path"]).exists()
+    out = {"n_params": first["n_params"], "pretrain_frames": n_frames,
+           "batch_triplets": SSL_BATCH, "frame_cache": first["frame_cache"],
+           "first_run_steps": len(first["losses"]),
+           "resume_start_step": res["start_step"],
+           "resumed_steps": res["steps"], "val_bps": vals,
+           "validations": len(vals), "best_bps": res["best_bps"],
+           "losses_first_last": [losses[0], losses[-1]],
+           "test_bps": test_bps,
+           "train_emb_shape": list(embeddings["X"][0].shape),
+           "artifacts": artifacts, "first_run_seconds": first_s,
+           "resumed_run_seconds": resumed_s, "peak_mem_gb": peak_gb,
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "fused_readout_launches": launches}
+    emit("ssl_main_path", **out)
+    if first["n_params"] != SSL_PARAMS:
+        raise AssertionError(f"ContrastViTMAE has {first['n_params']} "
+                             f"params, want {SSL_PARAMS}")
+    if not first["frame_cache"]:
+        raise AssertionError("the frame cache was not staged")
+    if len(losses) != SSL_MAX_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{len(losses)} losses, or not finite")
+    if res["start_step"] != SSL_FIRST_STEPS \
+            or res["steps"] != SSL_MAX_STEPS - SSL_FIRST_STEPS:
+        raise AssertionError(f"resume: {res['start_step']}, {res['steps']}")
+    if len(res["val_history"]) < 2 or not all(map(math.isfinite, vals)):
+        raise AssertionError(f"validations: {vals}")
+    if not all(artifacts.values()):
+        raise AssertionError(f"missing artifacts: {artifacts}")
+    if out["train_emb_shape"] != [32, 120, 3] \
+            or not np.isfinite(embeddings["X"][0]).all():
+        raise AssertionError(f"embeddings: {out['train_emb_shape']}")
+    if len(test_bps) != 1 or not math.isfinite(test_bps[0]):
+        raise AssertionError(f"cli.test bps: {test_bps}")
+    if launches or out["allow_tf32"]:
+        raise AssertionError("fused readout launched or TF32 on")
+    return out, data
+
+
+def phase_ssl_card_vs_cpu() -> dict:
+    """The full-width ContrastViTMAE forward on the card, in bf16 and f32,
+    against the same weights in f32 on the CPU with the same mask noise;
+    and the frame transform on the card against the CPU."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from video_spike_torch.convert import load_into_model
+    from video_spike_torch.data.contrast import device_frame_transform
+    from video_spike_torch.models.vit_mae import ContrastViTMAE
+
+    cfg = yaml.safe_load((ROOT / "configs/model/vit_mae/vit_mae.yaml")
+                         .read_text())
+    rng = np.random.default_rng(2)
+    resize, resized = {}, {}
+    for h, w in ((106, 160), (64, 96)):
+        frames = torch.from_numpy(rng.integers(
+            0, 256, (SSL_CARD_FRAMES, 1, h, w), dtype=np.uint8))
+        ref = device_frame_transform(frames, cfg["image_size"])
+        got = device_frame_transform(frames.cuda(), cfg["image_size"]).cpu()
+        resize[f"{h}x{w}"] = float((got - ref).abs().max())
+        resized[f"{h}x{w}"] = ref
+    cpu = ContrastViTMAE.from_config(cfg, dtype=torch.float32)
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    weights = dict(cpu.named_parameters())
+    x = resized["64x96"]                         # the fixture's crop size
+    L = (cfg["image_size"] // cfg["patch_size"]) ** 2
+    noise = torch.from_numpy(rng.random((SSL_CARD_FRAMES, L),
+                                        dtype=np.float32))
+    errs = {}
+    with torch.no_grad():
+        want = cpu(x, noise=noise)
+        for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            card = ContrastViTMAE.from_config(cfg, device="cuda", dtype=dtype)
+            load_into_model(card, weights)
+            got = card(x.cuda(), noise=noise.cuda())
+            for k in ("z", "recon_loss"):
+                g = got[k].float().cpu()
+                if not torch.isfinite(g).all() or g.shape != want[k].shape:
+                    raise AssertionError(f"{name} {k}: {g}")
+                errs[f"{name}_{k}"] = float((g - want[k]).abs().max()
+                                            / want[k].abs().max())
+            del card
+    _free_card()
+    out = {"frames": SSL_CARD_FRAMES, "max_rel_err": errs,
+           "bound_bf16": SSL_BF16_REL_BOUND, "bound_f32": SSL_F32_REL_BOUND,
+           "resize_max_abs_err": resize, "resize_bound": RESIZE_ABS_BOUND}
+    emit("ssl_card_vs_cpu", **out)
+    if any(v > SSL_BF16_REL_BOUND for k, v in errs.items()
+           if k.startswith("bf16")) or any(
+               v > SSL_F32_REL_BOUND for k, v in errs.items()
+               if k.startswith("f32")) or max(resize.values()) \
+            > RESIZE_ABS_BOUND:
+        raise AssertionError(f"SSL card vs CPU beyond its bound: {out}")
+    return out
+
+
+def ssl_staged_trainer(work: Path, data: dict, log_dir: str):
+    """(trainer with the frame cache live, one staged (3, 128) index
+    batch), built as ``cli.pretrain`` builds it."""
+    from video_spike_torch.cli import pretrain
+
+    with contextlib.chdir(work):
+        _, trainer, _, _ = pretrain.build_trainer(
+            ssl_args(work, log_dir, SSL_MAX_STEPS), data)
+    trainer._init_if_needed()
+    if not trainer._maybe_stage_frames():
+        raise AssertionError("the frame cache was not staged")
+    batch = next(trainer.data_loader.dataset.iter_index_batches(SSL_BATCH))
+    return trainer, trainer._stage_index_batch(batch)
+
+
+def phase_ssl_step_time(work: Path, data: dict) -> dict:
+    """ms/step of the staged SSL train step (frame cache live, batch 128
+    triplets): CUDA events over REPS windows of SSL_STEPS steps (the median
+    and every window), through the trainer ``cli.pretrain`` builds."""
+    import torch
+    import yaml
+
+    trainer, staged = ssl_staged_trainer(work / "ssl", data, "timing")
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):                                 # warm up
+        trainer._step_staged(staged, 0)
+    windows = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(SSL_STEPS):
+            trainer._step_staged(staged, 0)
+        end.record()
+        torch.cuda.synchronize()
+        windows.append(start.elapsed_time(end) / SSL_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del trainer, staged
+    _free_card()
+    ms = statistics.median(windows)
+    cfg = yaml.safe_load((ROOT / "configs/model/vit_mae/vit_mae.yaml")
+                         .read_text())
+    frames = 3 * SSL_BATCH
+    tflop = 3 * vit_mae_forward_flops(cfg, frames) / 1e12
+    out = {"ms_per_step": ms, "ms_per_step_windows": windows,
+           "steps_per_window": SSL_STEPS, "batch_triplets": SSL_BATCH,
+           "frames_per_step": frames,
+           "frames_per_s": frames / (ms / 1e3), "peak_mem_gb": peak,
+           "model_tflop_per_step": tflop,
+           "bf16_peak_share": tflop * 1e12 / (ms / 1e3) / BF16_FLOP_PER_S}
+    emit("ssl_step_time", **out)
+    return out
+
+
 def main() -> int:
     if not (ROOT / "video_spike_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -615,6 +985,10 @@ def main() -> int:
         phase_vtt_main_path(work)
         phase_vtt_card_vs_cpu()
         phase_vtt_step_time(work)
+        phase_rrr_main_path(work)
+        _, ssl = phase_ssl_main_path(work)
+        phase_ssl_card_vs_cpu()
+        phase_ssl_step_time(work, ssl)
     kernel["launches"] = main_path["launches"]
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of one train step goes on the card.
 
-    python3 scripts/profile_torch_step.py [--model linear|vtt] [--steps 10]
-        [--out DIR]
+    python3 scripts/profile_torch_step.py [--model linear|vtt|ssl]
+        [--steps 10] [--out DIR]
 
 Builds a trainer through ``video_spike_torch.cli.train`` at full width, as
 ``chip_smoke.py`` drives it:
@@ -11,7 +11,11 @@ Builds a trainer through ``video_spike_torch.cli.train`` at full width, as
   (120x128x128 uint8 video, first Dense 1,966,080 x 256 in a bf16 SR
   store, lean adafactor, fused readout) on a synthetic 40-trial session;
 - ``vtt``: the VTT flagship step (``configs/{model,train}/vtt_video.yaml``,
-  AdamW) at batch 16 on five synthetic sessions of up to 668 neurons.
+  AdamW) at batch 16 on five synthetic sessions of up to 668 neurons;
+- ``ssl``: the ContrastViTMAE pretraining step
+  (``configs/model/vit_mae/vit_mae.yaml`` + ``configs/train/vmae_video.yaml``,
+  constant-lr AdamW) at batch 128 triplets on a synthetic 40-trial
+  session, frame cache live, as ``cli.pretrain`` builds it.
 
 It warms up, then runs ``torch.profiler`` (CPU + CUDA activities) over
 ``--steps`` staged steps. Prints one JSON line: wall ms/step (with the
@@ -19,14 +23,16 @@ profiler on), the summed device time of every kernel per step, the
 device's busy share (kernel time / wall time), kernel launches per step,
 and the top kernels and operators by device time (each as
 [name, ms/step, calls/step]). The
-full table and a Chrome trace go to ``--out`` (default ``profile_out/``,
+full table and a gzipped Chrome trace go to ``--out`` (default ``profile_out/``,
 git-ignored). Needs one CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import gzip
 import json
+import shutil
 import sys
 import tempfile
 import time
@@ -37,7 +43,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def main() -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--model", choices=("linear", "vtt"), default="linear")
+    p.add_argument("--model", choices=("linear", "vtt", "ssl"),
+                   default="linear")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--out", type=str,
                    default=str(ROOT / "profile_out"))
@@ -60,7 +67,13 @@ def main() -> int:
     out.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="vst_prof_") as tmp:
         work = Path(tmp)
-        if args.model == "vtt":
+        if args.model == "ssl":
+            trainer, staged = chip_smoke.ssl_staged_trainer(
+                work, chip_smoke.ssl_data(work), "logs")
+
+            def run():
+                trainer._step_staged(staged, 0)
+        elif args.model == "vtt":
             chip_smoke.vtt_fixture(work / "vtt_data")
             trainer = train_cli.build_trainer(get_args(
                 chip_smoke.vtt_args(work, "logs")))
@@ -84,17 +97,23 @@ def main() -> int:
                  "--batch_size", str(chip_smoke.BATCH), "--device", "cuda"]))
             trainer.train_epoch()                 # stage + warm up
             run = trainer.train_epoch
+
+        def step_count():
+            # the SSL trainer counts its steps in _step_count
+            return (trainer._step_count if args.model == "ssl"
+                    else trainer.global_step)
+
         run()
         torch.cuda.synchronize()
-        step0 = trainer.global_step
+        step0 = step_count()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            while trainer.global_step - step0 < args.steps:
+            while step_count() - step0 < args.steps:
                 run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        steps = trainer.global_step - step0
+        steps = step_count() - step0
     from torch.autograd import DeviceType
 
     events = prof.key_averages()
@@ -115,7 +134,12 @@ def main() -> int:
 
     (out / "key_averages.txt").write_text(events.table(
         sort_by=self_attr, row_limit=80))
-    prof.export_chrome_trace(str(out / "trace.json"))
+    # the trace gzipped: an SSL step's ~10^4 events a step run to ~100 MB
+    raw = out / "trace.json"
+    prof.export_chrome_trace(str(raw))
+    with open(raw, "rb") as src, gzip.open(out / "trace.json.gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    raw.unlink()
     print(json.dumps({
         "model": args.model,
         "steps": steps,

@@ -3,8 +3,12 @@
 A flax param tree of numpy arrays (``{"params": {"encoder": {"Dense_0":
 {"kernel", "bias"}}}}``, e.g. ``jax.device_get(params)``) becomes the port's
 flat dict ``{"encoder.Dense_0.kernel": tensor, ...}`` and back. Layouts are
-kept as they are (kernels stay (in, out)) and so are dtypes: a bf16 leaf
-stays bf16, bit for bit.
+kept as they are (kernels stay (in, out), conv kernels (P, P, C, D)) and so
+are dtypes and shapes: a bf16 leaf stays bf16, bit for bit, and a scalar
+leaf stays 0-d. The ViT-MAE trees convert this way as they are (255 leaves
+for ``ContrastViTMAE``, among them the scalar ``temperature`` and the
+``vit_mae.patch_embed`` conv kernel), since the port's parameter names
+follow the flax tree.
 
 Optimizer states:
 
@@ -14,7 +18,8 @@ Optimizer states:
   ``Adafactor`` state dict;
 - optax ``adamw`` chain state ``(ScaleByAdamState(count, mu, nu),
   EmptyState(), ScaleByScheduleState(count) | EmptyState())`` <-> the port's
-  ``AdamW`` state dict.
+  ``AdamW`` state dict; the SSL trainer's constant learning rate has no
+  schedule count (``schedule=False``).
 
 Back-conversion returns plain nested tuples and dicts in the optax
 structure's flatten order, so

@@ -1,9 +1,9 @@
 """Model registry mapping config names to constructors.
 
 Parity with ``NAME2MODEL`` in the reference (``src/utils/utils.py:28-34``).
-The port has the Linear family and the VTT flagship so far; every other
-name the JAX package registers raises and names the ROADMAP item that ports
-it.
+The port has the Linear family, the VTT flagship and the three SSL ViT-MAE
+wrappers so far; every other name the JAX package registers raises and
+names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -14,13 +14,13 @@ from typing import Callable, Dict
 _LAZY: Dict[str, str] = {
     "Linear": "video_spike_torch.models.linear:LinearModel",
     "VideoTransformer": "video_spike_torch.models.vtt:VideoTemporalTransformer",
+    "ContrastViT": "video_spike_torch.models.vit_mae:ContrastViT",
+    "ContrastViTMAE": "video_spike_torch.models.vit_mae:ContrastViTMAE",
+    "MAE": "video_spike_torch.models.vit_mae:MAE",
 }
 
 # model_class -> ROADMAP.md Queue A item that ports it
 _NOT_PORTED: Dict[str, str] = {
-    "ContrastViT": "Queue A item 10 (SSL)",
-    "ContrastViTMAE": "Queue A item 10 (SSL)",
-    "MAE": "Queue A item 10 (SSL)",
     "VideoMAE": "Queue A item 11 (VideoMAE)",
     "VideoMAEForPreTraining": "Queue A item 11 (VideoMAE)",
 }

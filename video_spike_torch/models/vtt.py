@@ -33,15 +33,14 @@ from functools import partial
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from video_spike_torch.models.linear import lecun_normal_
 from video_spike_torch.models.vit_mae import (
     Block,
     LayerNorm,
+    Patchify,
     PosTable,
+    _run_blocks,
     sincos_pos_embed_1d,
     sincos_pos_embed_2d,
 )
@@ -58,46 +57,6 @@ def time_resample_init(t_frames: int, t_bins: int) -> np.ndarray:
         M[lo[j], j] += 1 - frac[j]
         M[hi[j], j] += frac[j]
     return M
-
-
-def _run_blocks(blocks, x: torch.Tensor, remat: bool) -> torch.Tensor:
-    for blk in blocks:
-        x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
-    return x
-
-
-class Patchify(nn.Module):
-    """Stride-P patch embedding on an NHWC input -> (N, tokens, D) in the
-    compute dtype; parameters ``kernel`` (P, P, C, D) and ``bias`` (D,)."""
-
-    def __init__(self, features: int, patch: int, channels: int = 1,
-                 dtype=torch.bfloat16, matmul: bool = True, device=None):
-        super().__init__()
-        self.features, self.patch, self.dtype = features, patch, dtype
-        self.matmul = matmul
-        self.kernel = nn.Parameter(torch.empty(
-            patch, patch, channels, features, device=device))
-        self.bias = nn.Parameter(torch.empty(features, device=device))
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        p, _, c, _ = self.kernel.shape
-        lecun_normal_(self.kernel, p * p * c, generator)
-        with torch.no_grad():
-            self.bias.zero_()
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, H, W, c = x.shape
-        p, d = self.patch, self.features
-        kernel = self.kernel.to(self.dtype)
-        if self.matmul:
-            patches = x.reshape(n, H // p, p, W // p, p, c).permute(
-                0, 1, 3, 2, 4, 5).reshape(n, (H // p) * (W // p), p * p * c)
-            y = patches @ kernel.reshape(p * p * c, d)
-        else:
-            y = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
-                         stride=p)                       # (N, D, h, w)
-            y = y.permute(0, 2, 3, 1).reshape(n, -1, d)
-        return y + self.bias.to(self.dtype)
 
 
 class FrameEncoder(nn.Module):
