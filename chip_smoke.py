@@ -10,8 +10,9 @@ Phases, one JSON line each on stdout:
    power limit as ``nvidia-smi`` reports them;
 2. kernel: each kernel against its plain PyTorch version on the card —
    bitwise on exact-sum inputs (including a flat index that wraps past
-   2^32), within tolerance on random inputs at the main path's shape — and
-   timed with CUDA events beside its bound;
+   2^32), within tolerance on random inputs — and timed with CUDA events
+   beside its bound, at the Linear path's shape and at the probe head's
+   (M = 1,204,224, N = 256, B = 8);
 3. main_path: ``python -m video_spike_torch.cli.train`` (called in-process)
    trains the full-width Linear model on a synthetic 128x128 session in
    the production configuration (bf16 SR store, lean adafactor, fused
@@ -42,9 +43,26 @@ Phases, one JSON line each on stdout:
    64×96;
 10. ssl_step_time: ms/step of the staged SSL train step (frame cache live),
     frames/s, peak memory, model TFLOP/step and its share of the bf16 peak;
-11. a ``{"kernels": [...]}`` line (the fused readout runs on the Linear
-    path only; the VTT, RRR and SSL paths must launch it 0 times);
-12. last line: ``{"ok": true, "device": {...}}``.
+11. probe_pretrain: ``cli.pretrain_videomae`` pretrains
+    VideoMAEForPreTraining at full width (94,222,080 parameters, mask ratio
+    0.9) for 20 steps at batch 8 on the Linear phase's fixture and writes
+    ``backbone.pt``;
+12. probe_main_path: ``cli.train`` trains the VideoMAE probe
+    (``configs/model/videomae/videomae.yaml`` with ``hf_compat: false`` and
+    that backbone, ``configs/train/vmae_video.yaml`` with the production
+    optimizer at a peak lr of 1e-6 (PROBE_LR); 405,723,216 parameters,
+    the 86,236,416 of the backbone frozen) for 2 epochs at batch 8, then
+    resumes for one more: the
+    features are staged once and the kernel carries the (1,204,224, 256)
+    head update on every step; the backbone must stay the checkpoint's;
+13. probe_card_vs_cpu: the ``hf_compat: true`` backbone's ``encode`` of one
+    trial on the card (bf16 and f32) against f32 on the CPU, at 4 frames;
+14. probe_step_time: ms/step of the staged fused head step, frames/s, the
+    per-trial encode and peak memory;
+15. a ``{"kernels": [...]}`` line (the fused readout runs on the Linear
+    and probe paths; the VTT, RRR, SSL and pretraining paths must launch
+    it 0 times);
+16. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure is an uncaught exception and a non-zero exit. Without a CUDA
 card, or without the rest of the repository beside it, it exits non-zero
@@ -124,6 +142,35 @@ SSL_F32_REL_BOUND = 1e-4
 # forms its taps in another order (measured 1.21e-5 at 106x160 on an H100);
 # 3e-5 is under 1% of one uint8 level (2/255 in these units)
 RESIZE_ABS_BOUND = 3e-5
+
+# VideoMAE probe (configs/model/videomae/videomae.yaml +
+# configs/train/vmae_video.yaml with the production optimizer) on the Linear
+# phase's fixture (smokeeid0: 40 trials of 120x128x128, 436 neurons; 32
+# train, 4 val, 4 test) at batch 8, from a backbone that cli.pretrain_videomae
+# pretrains first
+PROBE_YAML = "configs/model/videomae/videomae.yaml"
+PROBE_TRAIN_YAML = "configs/train/vmae_video.yaml"
+PROBE_BATCH = 8
+PROBE_M = 1568 * 768          # encoder_head rows: 1,568 tokens x 768
+# at 436 neurons with hf_compat: false, whose backbone ends in a LayerNorm:
+# 86,236,416 frozen (hf_compat: true has no final norm: 405,721,680 in all)
+PROBE_PARAMS = 405_723_216
+PRETRAIN_PARAMS = 94_222_080
+PRETRAIN_STEPS = 20
+PROBE_EPOCHS_PER_WINDOW = 5   # 4 staged steps an epoch: 20 steps a window
+PROBE_CARD_FRAMES = 4         # frames in the card-vs-CPU encode
+# peak lr of the probe runs. Lean adafactor's per-element normalized step
+# moves each head output by up to ~lr * sum_m |x_m| over M = 1,204,224
+# features (mean |x| ~0.8): ~5 a step at the start of the yaml's one-cycle
+# (5e-5 / 10), which overflows the exp link within the first epoch (this
+# script stopped there on an H100 at 700 W, in torch.linalg.eigh on a NaN
+# dz); ~0.1 a step at the start from a peak of 1e-6
+PROBE_LR = 1e-6
+# card vs CPU on the features, max |card - cpu| / max |cpu|: the hf_compat
+# backbone keeps a bf16 residual stream (~0.5% rounding, as the VTT's);
+# f32 differs by summation order only, with TF32 off
+PROBE_BF16_REL_BOUND = 2e-2
+PROBE_F32_REL_BOUND = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -218,30 +265,29 @@ def _sr_compare(got, ref, xa, dzc) -> dict:
             "n_outside_tolerance": n_outside, "max_abs_err": max_abs}
 
 
-def phase_kernel() -> dict:
+def _kernel_at(m: int, b: int, exact_ms, gen) -> dict:
+    """The kernel against its plain version at (M, N=256, B): bitwise on
+    exact-sum inputs at each M of ``exact_ms`` for every seed, >= 99.9%
+    bitwise and within tolerance on random inputs at M, then timed at M
+    (W far above L2) beside its bound; the median of REPS windows."""
     import torch
 
     from video_spike_torch.ops import fused_readout as fr
 
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    gen = torch.Generator(device=dev).manual_seed(0)
-    b, n = BATCH, KERNEL_N
+    dev, n = torch.device("cuda"), KERNEL_N
 
-    def exact_factors(m):
+    def exact_factors(rows):
         # small integers times powers of two: every f32 B-term sum is exact
         # in any order, at ~2^-10 of W's scale so SR still rounds
-        xa = torch.randint(-7, 8, (b, m), generator=gen, device=dev)
+        xa = torch.randint(-7, 8, (b, rows), generator=gen, device=dev)
         dzc = torch.randint(-7, 8, (b, n), generator=gen, device=dev)
         return xa.float() * 2.0**-8, dzc.float() * 2.0**-12
 
-    # (a) bitwise on exact sums, ragged M and an M whose index wraps 2^32
     bitwise = []
-    for m in (4133, WRAP_M):
-        w0 = torch.randn(m, n, generator=gen, device=dev,
+    for rows in exact_ms:
+        w0 = torch.randn(rows, n, generator=gen, device=dev,
                          dtype=torch.bfloat16)
-        xa, dzc = exact_factors(m)
+        xa, dzc = exact_factors(rows)
         for seed in SEEDS:
             ref = fr._apply_scaled_outer_plain(w0, xa, dzc, seed)
             w = w0.clone()
@@ -249,16 +295,15 @@ def phase_kernel() -> dict:
             torch.cuda.synchronize()
             equal = bool(torch.equal(w.view(torch.int16),
                                      ref.view(torch.int16)))
-            bitwise.append({"m": m, "seed": seed, "bitwise": equal})
+            bitwise.append({"m": rows, "b": b, "seed": seed,
+                            "bitwise": equal})
             if not equal:
                 raise AssertionError(f"kernel != plain on exact sums: "
-                                     f"M={m}, seed={seed}")
+                                     f"M={rows}, B={b}, seed={seed}")
             del ref, w
         del w0, xa, dzc
         torch.cuda.empty_cache()
 
-    # (b) random normal inputs at the main path's shape
-    m = KERNEL_M
     w0 = torch.randn(m, n, generator=gen, device=dev, dtype=torch.bfloat16)
     xa = torch.randn(b, m, generator=gen, device=dev) * 1e-2
     dzc = torch.randn(b, n, generator=gen, device=dev) * 1e-2
@@ -268,40 +313,57 @@ def phase_kernel() -> dict:
     torch.cuda.synchronize()
     cmp = _sr_compare(w, ref, xa, dzc)
     if cmp["frac_bitwise"] < 0.999 or cmp["n_outside_tolerance"]:
-        raise AssertionError(f"kernel vs plain at the Linear shape: {cmp}")
+        raise AssertionError(f"kernel vs plain at M={m}, B={b}: {cmp}")
     del ref
 
-    # (c) timing at the main path's shape (W is 1 GB, far above L2); the
-    # median of REPS windows, each window printed so its spread shows
-    kernel_windows = [cuda_ms(lambda: fr.apply_scaled_outer(w, xa, dzc, 3),
-                              20, 3) for _ in range(REPS)]
-    kernel_ms = statistics.median(kernel_windows)
+    windows = [cuda_ms(lambda: fr.apply_scaled_outer(w, xa, dzc, 3), 20, 3)
+               for _ in range(REPS)]
     plain_ms = cuda_ms(lambda: fr._apply_scaled_outer_plain(w, xa, dzc, 3),
                        3, 1)
     nbytes = 2 * m * n * 2 + b * m * 4 + b * n * 4
     flops = 2 * b * m * n
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = flops / F32_FLOP_PER_S * 1e3
+    del w, w0, xa, dzc
+    torch.cuda.empty_cache()
+    return {"shape": [m, n, b], "exact_sum_cases": bitwise,
+            "random_inputs": cmp, "ms": statistics.median(windows),
+            "ms_windows": windows, "plain_ms": plain_ms,
+            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                         else "operations"),
+            "bound_bytes": nbytes, "bound_flops": flops}
+
+
+def phase_kernel() -> dict:
+    """The kernel at the Linear path's shape (exact sums also at a ragged M
+    and at an M whose flat index wraps 2^32) and at the probe head's."""
+    import torch
+
+    from video_spike_torch.ops import fused_readout as fr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    linear = _kernel_at(KERNEL_M, BATCH, (4133, WRAP_M), gen)
+    probe = _kernel_at(PROBE_M, PROBE_BATCH, (PROBE_M,), gen)
     result = {
         "name": "apply_scaled_outer",
         "route": "cuda",
         "source": "video_spike_torch/csrc/fused_readout.cu",
         "replaces": "video_spike_tpu/ops/fused_readout.py:161",
-        "max_abs_err": cmp["max_abs_err"],
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-        "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
-                     else "operations"),
+        "max_abs_err": linear["random_inputs"]["max_abs_err"],
+        "ms": linear["ms"],
+        "plain_ms": linear["plain_ms"],
+        "bound_ms": linear["bound_ms"],
+        "bound_by": linear["bound_by"],
         "library_ms": None,
+        "probe": {k: probe[k] for k in ("shape", "ms", "plain_ms",
+                                        "bound_ms", "bound_by")},
     }
-    emit("kernel", kernel="apply_scaled_outer", shape=[m, n, b],
-         exact_sum_cases=bitwise, random_inputs=cmp, kernel_ms=kernel_ms,
-         kernel_ms_windows=kernel_windows, plain_ms=plain_ms, bound_ms=result["bound_ms"],
-         bound_bytes=nbytes, bound_flops=flops,
+    result["probe"]["max_abs_err"] = probe["random_inputs"]["max_abs_err"]
+    emit("kernel", kernel="apply_scaled_outer", linear=linear, probe=probe,
          launches_in_checks=fr.apply_scaled_outer.launches)
-    del w, w0, xa, dzc
-    torch.cuda.empty_cache()
     return result
 
 
@@ -522,6 +584,9 @@ def phase_vtt_main_path(work: Path) -> dict:
     if res["n_params"] != VTT_PARAMS:
         raise AssertionError(f"VTT has {res['n_params']} params, "
                              f"want {VTT_PARAMS}")
+    if fused_launches:
+        raise AssertionError(f"the VTT path launched the fused readout "
+                             f"{fused_launches} times")
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on")
     losses = res["train_losses"]
@@ -964,6 +1029,265 @@ def phase_ssl_step_time(work: Path, data: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 11-14: the VideoMAE probe and its pretrained backbone
+# ---------------------------------------------------------------------------
+
+def probe_yamls(work: Path, backbone=None) -> tuple:
+    """(model yaml, train yaml) of the probe: videomae.yaml with
+    ``hf_compat: false`` and ``pretrained_backbone`` (None: random init),
+    vmae_video.yaml with the production optimizer at PROBE_LR."""
+    import yaml
+
+    model = yaml.safe_load((ROOT / PROBE_YAML).read_text())
+    model.update(hf_compat=False, pretrained_backbone=backbone)
+    train = yaml.safe_load((ROOT / PROBE_TRAIN_YAML).read_text())
+    train["optimizer"].update(PRODUCTION_OPTIMIZER, lr=PROBE_LR)
+    paths = work / "probe_model.yaml", work / "probe_train.yaml"
+    paths[0].write_text(yaml.safe_dump(model))
+    paths[1].write_text(yaml.safe_dump(train))
+    return paths
+
+
+def probe_args(work: Path, log_dir: str, backbone=None) -> list:
+    model_yaml, train_yaml = probe_yamls(work, backbone)
+    return ["--model_config", str(model_yaml),
+            "--train_config", str(train_yaml), "--eid", "smokeeid0",
+            "--data_dir", str(work / "data"), "--log_dir", str(work / log_dir),
+            "--batch_size", str(PROBE_BATCH), "--device", "cuda"]
+
+
+def phase_probe_pretrain(work: Path) -> str:
+    """``cli.pretrain_videomae`` at full width (VideoMAEForPreTraining,
+    94,222,080 parameters, mask ratio 0.9) for PRETRAIN_STEPS steps at batch
+    8 on the Linear phase's fixture; returns the backbone.pt path."""
+    import torch
+
+    from video_spike_torch.cli import pretrain_videomae
+    from video_spike_torch.ops import fused_readout as fr
+
+    torch.cuda.reset_peak_memory_stats()
+    fr.apply_scaled_outer.launches = 0
+    t0 = time.perf_counter()
+    res = pretrain_videomae.main(
+        ["--model_config", str(ROOT / PROBE_YAML),
+         "--train_config", str(ROOT / PROBE_TRAIN_YAML),
+         "--eid", "smokeeid0", "--data_dir", str(work / "data"),
+         "--log_dir", str(work / "probe_pretrain"),
+         "--max_steps", str(PRETRAIN_STEPS),
+         "--batch_size", str(PROBE_BATCH), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fr.apply_scaled_outer.launches
+    out = {"n_params": res["n_params"], "steps": len(res["losses"]),
+           "losses_first_last": [res["losses"][0], res["losses"][-1]],
+           "path_exists": Path(res["path"]).is_file(), "seconds": seconds,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "fused_readout_launches": launches}
+    emit("probe_pretrain", **out)
+    if res["n_params"] != PRETRAIN_PARAMS:
+        raise AssertionError(f"VideoMAEForPreTraining has {res['n_params']} "
+                             f"params, want {PRETRAIN_PARAMS}")
+    if len(res["losses"]) != PRETRAIN_STEPS \
+            or not all(map(math.isfinite, res["losses"])):
+        raise AssertionError(f"pretraining losses: {res['losses']}")
+    if not out["path_exists"] or launches:
+        raise AssertionError(f"backbone.pt missing or launches: {out}")
+    _free_card()
+    return res["path"]
+
+
+def _assert_backbone_is(params: dict, ckpt: dict, what: str) -> None:
+    """Every ``video_mae.*`` leaf equals the pretraining checkpoint's, cast
+    to the leaf's dtype (the bf16 SR store rounds leaves >= 65,536
+    elements to nearest), bit for bit."""
+    import torch
+
+    names = [k for k in params if k.startswith("video_mae.")]
+    bad = [k for k in names if not torch.equal(
+        params[k], ckpt[k[len("video_mae."):]].to(params[k].dtype))]
+    if not names or bad:
+        raise AssertionError(f"{what}: backbone differs from the checkpoint "
+                             f"at {bad[:4]} ({len(names)} leaves)")
+
+
+def phase_probe_main_path(work: Path, backbone: str) -> dict:
+    """``cli.train`` on the probe (production optimizer, fused head update)
+    from the pretrained backbone for 2 epochs, then ``--resume`` for a
+    third; the kernel's launches must equal the train steps in both."""
+    import numpy as np
+    import torch
+
+    from video_spike_torch.cli import train as train_cli
+    from video_spike_torch.ops import fused_readout as fr
+
+    base = probe_args(work, "probe_logs", backbone)
+    torch.cuda.reset_peak_memory_stats()
+    fr.apply_scaled_outer.launches = 0
+    t0 = time.perf_counter()
+    res = train_cli.main(base + ["--num_epochs", "2"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = fr.apply_scaled_outer.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = res["global_step"]
+    log_dir = Path(res["log_dir"])
+    artifacts = {name: (log_dir / name).exists()
+                 for name in ("model_best.pt", "model_last.pt",
+                              "test_results.npy")}
+    fr.apply_scaled_outer.launches = 0
+    res2 = train_cli.main(base + ["--num_epochs", "3", "--resume"])
+    torch.cuda.synchronize()
+    resumed_steps = res2["global_step"] - steps
+    resume_launches = fr.apply_scaled_outer.launches
+    test = res["test_res"]
+    out = {"n_params": res["n_params"], "train_steps": steps,
+           "launches": launches, "fused_readout": res["fused_readout"],
+           "features_staged": res["features_staged"],
+           "train_losses": res["train_losses"], "eval": res["eval_history"],
+           "test": test, "artifacts": artifacts, "train_seconds": train_s,
+           "encode_seconds": res["encode_seconds"], "peak_mem_gb": peak_gb,
+           "resume_start_epoch": res2["start_epoch"],
+           "resume_steps": resumed_steps, "resume_launches": resume_launches,
+           "resume_train_loss": res2["train_losses"]}
+    emit("probe_main_path", **out)
+    if res["n_params"] != PROBE_PARAMS:
+        raise AssertionError(f"the probe has {res['n_params']} params, want "
+                             f"{PROBE_PARAMS}")
+    if not (res["fused_readout"] and res["features_staged"]):
+        raise AssertionError("the fused head step or the feature cache was "
+                             "not engaged")
+    if steps == 0 or launches != steps:
+        raise AssertionError(f"kernel launches {launches} != train steps "
+                             f"{steps}")
+    if res2["start_epoch"] != 2 or resumed_steps <= 0 \
+            or resume_launches != resumed_steps:
+        raise AssertionError(f"resume: start_epoch {res2['start_epoch']}, "
+                             f"steps {resumed_steps}, launches "
+                             f"{resume_launches}")
+    losses = res["train_losses"] + res2["train_losses"]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train losses: {losses}")
+    if not res["eval_history"] or not all(
+            math.isfinite(e[k]) for e in res["eval_history"]
+            for k in ("eval_bps", "eval_rsquared")):
+        raise AssertionError(f"eval metrics: {res['eval_history']}")
+    if not all(math.isfinite(test[k]) for k in ("test_bps", "test_rsquared",
+                                                "test_loss")):
+        raise AssertionError(f"test metrics: {test}")
+    if not all(artifacts.values()):
+        raise AssertionError(f"missing artifacts: {artifacts}")
+    preds = np.load(log_dir / "test_results.npy",
+                    allow_pickle=True).item()["test_preds"][0]
+    if preds.shape[1:] != (100, N_NEURONS) or not np.isfinite(preds).all():
+        raise AssertionError(f"test preds {preds.shape}")
+    # loaded exactly, and still exactly the checkpoint after 3 epochs
+    ckpt = torch.load(backbone, map_location="cpu",
+                      weights_only=True)["params"]
+    for name in ("model_best", "model_last"):
+        _assert_backbone_is(torch.load(log_dir / f"{name}.pt",
+                                       weights_only=True)["params"], ckpt,
+                            name)
+    _free_card()
+    return out
+
+
+def phase_probe_card_vs_cpu() -> dict:
+    """The ``hf_compat: true`` probe's ``encode`` (preprocess + ViT-Base) on
+    one trial on the card, in bf16 and f32, against f32 on the CPU with the
+    same weights. ``num_frames`` is cut to PROBE_CARD_FRAMES (392 tokens) to
+    keep the CPU side short, and ``encoder_head`` to 8 outputs (the head is
+    not compared)."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from video_spike_torch.convert import load_into_model
+    from video_spike_torch.models.videomae import VideoMAEProbe
+
+    cfg = yaml.safe_load((ROOT / PROBE_YAML).read_text())
+    cfg.update(num_frames=PROBE_CARD_FRAMES, hf_compat=True,
+               encoder={"output_dim": 8},
+               decoder={"output_dim": 100 * N_NEURONS})
+    cpu = VideoMAEProbe.from_config(cfg, dtype=torch.float32)
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    weights = dict(cpu.named_parameters())
+    video = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (1, T_FRAMES, 1, HEIGHT, WIDTH), dtype=np.uint8))
+    errs = {}
+    with torch.no_grad():
+        ref = cpu.encode(video)
+        for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            card = VideoMAEProbe.from_config(cfg, device="cuda", dtype=dtype)
+            load_into_model(card, weights)
+            got = card.encode(video.cuda()).float().cpu()
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"{name}: {tuple(got.shape)} or not "
+                                     f"finite")
+            errs[name] = float((got - ref).abs().max() / ref.abs().max())
+            del card
+    _free_card()
+    out = {"frames": PROBE_CARD_FRAMES, "shape": list(ref.shape),
+           "max_rel_err_bf16": errs["bf16"], "bound_bf16": PROBE_BF16_REL_BOUND,
+           "max_rel_err_f32": errs["f32"], "bound_f32": PROBE_F32_REL_BOUND}
+    emit("probe_card_vs_cpu", **out)
+    if errs["bf16"] > PROBE_BF16_REL_BOUND or errs["f32"] > PROBE_F32_REL_BOUND:
+        raise AssertionError(f"probe card vs CPU beyond its bound: {out}")
+    return out
+
+
+def probe_staged_trainer(work: Path, log_dir: str):
+    """The probe trainer ``cli.train`` builds (random backbone), with its
+    features staged and one epoch of fused head steps run."""
+    from video_spike_torch.cli import train as train_cli
+    from video_spike_torch.core.cli import get_args
+
+    trainer = train_cli.build_trainer(get_args(probe_args(work, log_dir)))
+    trainer.train_epoch()                   # stages, encodes, warms up
+    if not (trainer._features_staged and trainer._fused_inner is not None):
+        raise AssertionError("probe features not staged or step not fused")
+    return trainer
+
+
+def phase_probe_step_time(work: Path) -> dict:
+    """ms/step of the staged fused head step (CUDA events over REPS
+    windows of PROBE_EPOCHS_PER_WINDOW epochs, the median and every
+    window), frames/s, the per-trial encode and peak memory."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = probe_staged_trainer(work, "probe_timing")
+    windows = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        step0 = trainer.global_step
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(PROBE_EPOCHS_PER_WINDOW):
+            trainer.train_epoch()
+        end.record()
+        torch.cuda.synchronize()
+        steps = trainer.global_step - step0
+        windows.append(start.elapsed_time(end) / steps)
+    batch = next(iter(trainer.train_loader))
+    video = trainer._to_device(trainer._assemble_inputs(batch))
+    with torch.no_grad():
+        encode_ms = cuda_ms(lambda: trainer.model.encode(video), 3, 1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = video.shape[0]
+    del trainer, video
+    _free_card()
+    ms = statistics.median(windows)
+    out = {"ms_per_step": ms, "ms_per_step_windows": windows,
+           "steps_per_window": steps, "batch": PROBE_BATCH,
+           "frames_per_s": PROBE_BATCH * T_FRAMES / (ms / 1e3),
+           "encode_ms_per_trial": encode_ms / n, "encode_batch": n,
+           "peak_mem_gb": peak}
+    emit("probe_step_time", **out)
+    return out
+
+
 def main() -> int:
     if not (ROOT / "video_spike_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -989,7 +1313,19 @@ def main() -> int:
         _, ssl = phase_ssl_main_path(work)
         phase_ssl_card_vs_cpu()
         phase_ssl_step_time(work, ssl)
-    kernel["launches"] = main_path["launches"]
+        del ssl
+        _free_card()
+        backbone = phase_probe_pretrain(work)
+        probe = phase_probe_main_path(work, backbone)
+        phase_probe_card_vs_cpu()
+        phase_probe_step_time(work)
+    # launches on the paths that run the kernel (every other path: 0)
+    kernel["launches"] = main_path["launches"] + probe["launches"]
+    kernel["launches_by_path"] = {
+        "linear": main_path["launches"],
+        "linear_resume": main_path["resume_steps"],
+        "probe": probe["launches"], "probe_resume": probe["resume_launches"]}
+    kernel["probe"]["launches"] = probe["launches"]
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

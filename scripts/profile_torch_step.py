@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one train step goes on the card.
 
-    python3 scripts/profile_torch_step.py [--model linear|vtt|ssl]
+    python3 scripts/profile_torch_step.py [--model linear|vtt|ssl|probe]
         [--steps 10] [--out DIR]
 
 Builds a trainer through ``video_spike_torch.cli.train`` at full width, as
@@ -15,7 +15,14 @@ Builds a trainer through ``video_spike_torch.cli.train`` at full width, as
 - ``ssl``: the ContrastViTMAE pretraining step
   (``configs/model/vit_mae/vit_mae.yaml`` + ``configs/train/vmae_video.yaml``,
   constant-lr AdamW) at batch 128 triplets on a synthetic 40-trial
-  session, frame cache live, as ``cli.pretrain`` builds it.
+  session, frame cache live, as ``cli.pretrain`` builds it;
+- ``probe``: the VideoMAE probe's staged fused head step
+  (``configs/model/videomae/videomae.yaml`` with ``hf_compat: false`` and
+  a random backbone, ``configs/train/vmae_video.yaml`` with the production
+  optimizer, batch 8; the kernel updates the (1,204,224, 256)
+  ``encoder_head``) on the 40-trial session, features staged; then, apart,
+  the frozen encode of one batch of 8 raw trials (``encode`` in the
+  output, per trial).
 
 It warms up, then runs ``torch.profiler`` (CPU + CUDA activities) over
 ``--steps`` staged steps. Prints one JSON line: wall ms/step (with the
@@ -41,9 +48,51 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
+def summarize(prof, wall: float, units: int, unit: str,
+              out=None) -> dict:
+    """Per ``unit`` (step or trial) of a profiled window: wall ms (profiler
+    on), summed kernel device ms, the busy share, kernel launches, and the
+    top kernels and operators by device time ([name, ms, calls] each). With
+    ``out``, the full table and a gzipped Chrome trace go there."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    self_attr = ("self_device_time_total"
+                 if hasattr(events[0], "self_device_time_total")
+                 else "self_cuda_time_total")
+    # kernel rows only: an operator row repeats the time of its kernels
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and getattr(e, self_attr) > 0]
+    ops = [e for e in events if e.device_type == DeviceType.CPU
+           and getattr(e, self_attr) > 0]
+    device_us = sum(getattr(e, self_attr) for e in kernels)
+
+    def top(rows):
+        rows = sorted(rows, key=lambda e: -getattr(e, self_attr))[:15]
+        return [[e.key[:90], getattr(e, self_attr) / 1e3 / units,
+                 e.count / units] for e in rows]
+
+    if out is not None:
+        (out / "key_averages.txt").write_text(events.table(
+            sort_by=self_attr, row_limit=80))
+        # gzipped: an SSL step's ~10^4 events a step run to ~100 MB
+        raw = out / "trace.json"
+        prof.export_chrome_trace(str(raw))
+        with open(raw, "rb") as src, \
+                gzip.open(out / "trace.json.gz", "wb") as dst:
+            shutil.copyfileobj(src, dst)
+        raw.unlink()
+    return {f"wall_ms_per_{unit}": wall * 1e3 / units,
+            f"device_ms_per_{unit}": device_us / 1e3 / units,
+            "device_busy_share": device_us / 1e6 / wall,
+            f"kernel_launches_per_{unit}":
+                sum(e.count for e in kernels) / units,
+            "top_kernels": top(kernels), "top_ops": top(ops)}
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--model", choices=("linear", "vtt", "ssl"),
+    p.add_argument("--model", choices=("linear", "vtt", "ssl", "probe"),
                    default="linear")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--out", type=str,
@@ -73,6 +122,13 @@ def main() -> int:
 
             def run():
                 trainer._step_staged(staged, 0)
+        elif args.model == "probe":
+            make_fixture.main(["--out", str(work / "data"),
+                               "--eid", "smokeeid0",
+                               "--n_trials", str(chip_smoke.N_TRIALS),
+                               "--n_neurons", str(chip_smoke.N_NEURONS)])
+            trainer = chip_smoke.probe_staged_trainer(work, "logs")
+            run = trainer.train_epoch
         elif args.model == "vtt":
             chip_smoke.vtt_fixture(work / "vtt_data")
             trainer = train_cli.build_trainer(get_args(
@@ -114,43 +170,25 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         steps = step_count() - step0
-    from torch.autograd import DeviceType
-
-    events = prof.key_averages()
-    self_attr = ("self_device_time_total"
-                 if hasattr(events[0], "self_device_time_total")
-                 else "self_cuda_time_total")
-    # kernel rows only: an operator row repeats the time of its kernels
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and getattr(e, self_attr) > 0]
-    ops = [e for e in events if e.device_type == DeviceType.CPU
-           and getattr(e, self_attr) > 0]
-    device_us = sum(getattr(e, self_attr) for e in kernels)
-
-    def top(rows):
-        rows = sorted(rows, key=lambda e: -getattr(e, self_attr))[:15]
-        return [[e.key[:90], getattr(e, self_attr) / 1e3 / steps,
-                 e.count / steps] for e in rows]
-
-    (out / "key_averages.txt").write_text(events.table(
-        sort_by=self_attr, row_limit=80))
-    # the trace gzipped: an SSL step's ~10^4 events a step run to ~100 MB
-    raw = out / "trace.json"
-    prof.export_chrome_trace(str(raw))
-    with open(raw, "rb") as src, gzip.open(out / "trace.json.gz", "wb") as dst:
-        shutil.copyfileobj(src, dst)
-    raw.unlink()
-    print(json.dumps({
-        "model": args.model,
-        "steps": steps,
-        "wall_ms_per_step": wall * 1e3 / steps,
-        "device_ms_per_step": device_us / 1e3 / steps,
-        "device_busy_share": device_us / 1e6 / wall,
-        "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
-        "top_kernels": top(kernels),
-        "top_ops": top(ops),
-        "card": chip_smoke.nvidia_smi_line(),
-    }))
+        encode = None
+        if args.model == "probe":
+            video = trainer._to_device(trainer._assemble_inputs(
+                next(iter(trainer.train_loader))))
+            with torch.no_grad():
+                trainer.model.encode(video)            # warm up
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as eprof:
+                    t0 = time.perf_counter()
+                    for _ in range(2):
+                        trainer.model.encode(video)
+                    torch.cuda.synchronize()
+                    ewall = time.perf_counter() - t0
+            encode = summarize(eprof, ewall, 2 * video.shape[0], "trial")
+    print(json.dumps({"model": args.model, "steps": steps,
+                      **summarize(prof, wall, steps, "step", out),
+                      **({"encode": encode} if encode else {}),
+                      "card": chip_smoke.nvidia_smi_line()}))
     return 0
 
 

@@ -52,10 +52,11 @@ def _random_w(rng, m, n) -> torch.Tensor:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [4133, 32])     # ragged last tile; one tile
-def test_cuda_kernel_matches_plain(cuda_device, m):
+@pytest.mark.parametrize("m,b", [(4133, 16), (32, 16),   # ragged; one tile
+                                 (1_204_224, 8)])        # the probe head
+def test_cuda_kernel_matches_plain(cuda_device, m, b):
     rng = np.random.default_rng(5)
-    n, b = 256, 16
+    n = 256
     w = _random_w(rng, m, n)
     xa, dzc = _exact_factors(rng, b, m, n)
     for seed in SEEDS:
@@ -71,9 +72,11 @@ def test_cuda_kernel_matches_plain(cuda_device, m):
 
 
 @pytest.mark.gpu
-def test_cuda_kernel_random_inputs_within_one_ulp(cuda_device):
+@pytest.mark.parametrize("m,b", [(20_000, 16),       # the Linear path's B
+                                 (1_204_224, 8)])    # the probe head's shape
+def test_cuda_kernel_random_inputs_within_one_ulp(cuda_device, m, b):
     rng = np.random.default_rng(6)
-    m, n, b = 20_000, 256, 16
+    n = 256
     w = _random_w(rng, m, n)
     xa = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32) * 1e-2)
     dzc = torch.from_numpy(rng.normal(size=(b, n)).astype(np.float32) * 1e-2)

@@ -10,7 +10,10 @@ path) and with ``video_spike_tpu/cli/train.py``, plus ``--device``:
 
 Flow: config merge -> seed -> 80/10/10 trial split -> loaders -> metadata
 probe -> model from registry on the device -> optimizer + OneCycle ->
-Poisson NLL -> trainer. ``--eid all`` (the sessions of ``data/eid.txt``) or
+Poisson NLL -> trainer. The same path trains the VideoMAE probe
+(``configs/model/videomae/videomae.yaml``: its frozen backbone, from
+``model.pretrained_backbone`` when set, is encoded once and the head
+trains on the features). ``--eid all`` (the sessions of ``data/eid.txt``) or
 a comma list ``--eid e1,e2,...`` trains the multi-session flagship
 (``configs/model/vtt_video.yaml``) instead, sized from the probed sessions.
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for ``cuda``

@@ -19,7 +19,15 @@ Optimizer states:
 - optax ``adamw`` chain state ``(ScaleByAdamState(count, mu, nu),
   EmptyState(), ScaleByScheduleState(count) | EmptyState())`` <-> the port's
   ``AdamW`` state dict; the SSL trainer's constant learning rate has no
-  schedule count (``schedule=False``).
+  schedule count (``schedule=False``);
+- the frozen-path ``optax.multi_transform`` state of a frozen probe
+  (``MaskedNode`` placeholders where the backbone is) <-> the port's
+  ``Frozen`` state, the inner optimizer's over the trained leaves; under
+  ``fused_readout`` the JAX state is ``(FusedReadoutState, that state)``.
+
+The VideoMAE probe and pretraining trees convert like the others
+(``video_mae.patch_embed.Conv_0.kernel`` (kT, kH, kW, C, D),
+``encoder_head.kernel``, ``mask_token``, ...).
 
 Back-conversion returns plain nested tuples and dicts in the optax
 structure's flatten order, so
@@ -168,3 +176,34 @@ def adamw_state_to_optax(state: Mapping, schedule: bool = True) -> tuple:
     count = np.asarray(state["count"], np.int32)
     adam = (count, torch_to_flax(state["mu"]), torch_to_flax(state["nu"]))
     return (adam, (), (count,) if schedule else ())
+
+
+def _drop_masked(tree):
+    """An optax state tree without the ``MaskedNode`` placeholders (empty
+    named tuples standing for frozen leaves in a param-shaped dict)."""
+    if isinstance(tree, Mapping):
+        out = {k: _drop_masked(v) for k, v in tree.items()
+               if not (isinstance(v, tuple) and len(v) == 0)}
+        return {k: v for k, v in out.items()
+                if not (isinstance(v, Mapping) and not v)}
+    if isinstance(tree, tuple):
+        return tuple(_drop_masked(v) for v in tree)
+    return tree
+
+
+def frozen_state_from_optax(state, inner_from, device=None):
+    """The JAX trainer's frozen-path state, ``optax.multi_transform({"train":
+    tx, "freeze": set_to_zero()})``'s ``PartitionState(inner_states={"train":
+    MaskedState(tx state), "freeze": ...})``, -> the port's ``Frozen`` state:
+    ``inner_from`` (``adafactor_state_from_optax`` or
+    ``adamw_state_from_optax``) of the train state without its placeholders.
+    """
+    return inner_from(_drop_masked(state[0]["train"][0]), device)
+
+
+def frozen_state_to_optax(inner: tuple) -> tuple:
+    """The optax tuples of a ``Frozen`` optimizer's inner state (from
+    ``adafactor_state_to_optax`` / ``adamw_state_to_optax``) -> plain tuples
+    in ``PartitionState``'s flatten order (``set_to_zero`` keeps no state
+    and the placeholders hold no leaves)."""
+    return ({"freeze": ((),), "train": (inner,)},)

@@ -1,9 +1,9 @@
 """Model registry mapping config names to constructors.
 
-Parity with ``NAME2MODEL`` in the reference (``src/utils/utils.py:28-34``).
-The port has the Linear family, the VTT flagship and the three SSL ViT-MAE
-wrappers so far; every other name the JAX package registers raises and
-names the ROADMAP item that ports it.
+Parity with ``NAME2MODEL`` in the reference (``src/utils/utils.py:28-34``):
+every name the JAX package registers (the Linear family, the VTT flagship,
+the three SSL ViT-MAE wrappers, the VideoMAE probe and its pretraining
+model), imported lazily.
 """
 
 from __future__ import annotations
@@ -17,12 +17,9 @@ _LAZY: Dict[str, str] = {
     "ContrastViT": "video_spike_torch.models.vit_mae:ContrastViT",
     "ContrastViTMAE": "video_spike_torch.models.vit_mae:ContrastViTMAE",
     "MAE": "video_spike_torch.models.vit_mae:MAE",
-}
-
-# model_class -> ROADMAP.md Queue A item that ports it
-_NOT_PORTED: Dict[str, str] = {
-    "VideoMAE": "Queue A item 11 (VideoMAE)",
-    "VideoMAEForPreTraining": "Queue A item 11 (VideoMAE)",
+    "VideoMAE": "video_spike_torch.models.videomae:VideoMAEProbe",
+    "VideoMAEForPreTraining":
+        "video_spike_torch.models.videomae:VideoMAEForPreTraining",
 }
 
 
@@ -30,10 +27,6 @@ def get_model(name: str) -> Callable:
     if name in _LAZY:
         module_name, attr = _LAZY[name].split(":")
         return getattr(importlib.import_module(module_name), attr)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet; see ROADMAP.md "
-            f"{_NOT_PORTED[name]}")
     raise KeyError(f"Unknown model {name!r}; known: {sorted(_LAZY)}")
 
 

@@ -30,7 +30,8 @@ Precision follows flax's per-module dtypes, cast explicitly (no autocast):
 - ``LayerNorm`` takes its statistics in f32 with flax's fast variance
   (E[x²] − E[x]², clipped at 0), normalises in f32 with the f32 scale and
   bias, and casts once to its dtype;
-- GELU is the tanh approximation;
+- GELU is the tanh approximation (the exact erf one with
+  ``gelu_approx=False``, for the VideoMAE backbone's imported weights);
 - the backbone casts the frames to the compute dtype before the patch
   embedding and adds the position tables in that dtype, so the residual
   stream is bf16; each encoder's final LayerNorm returns f32; the
@@ -84,8 +85,17 @@ def sincos_pos_embed_2d(dim: int, grid_size: int,
     return emb.astype(np.float32)
 
 
-def sincos_pos_embed_1d(dim: int, length: int) -> np.ndarray:
-    """1-D sinusoid table in the concatenated (sin | cos) layout."""
+def sincos_pos_embed_1d(dim: int, length: int,
+                        interleaved: bool = False) -> np.ndarray:
+    """1-D sinusoid table in the concatenated (sin | cos) layout, or with
+    ``interleaved=True`` the HF VideoMAE layout (even dims sin, odd dims
+    cos, one frequency per pair), which released HF weights need."""
+    if interleaved:
+        pos = np.arange(length, dtype=np.float64)[:, None]
+        angle = pos / np.power(10000, 2 * (np.arange(dim) // 2) / dim)
+        angle[:, 0::2] = np.sin(angle[:, 0::2])
+        angle[:, 1::2] = np.cos(angle[:, 1::2])
+        return angle.astype(np.float32)
     return _sincos_1d(dim, np.arange(length, dtype=np.float64)).astype(
         np.float32)
 
@@ -160,15 +170,20 @@ class Block(nn.Module):
     """Pre-LN transformer block: x + attn(LN(x)), then x + MLP(LN(x)).
 
     The residual adds follow torch's type promotion, which is JAX's here: a
-    bf16 branch added to an f32 stream stays f32."""
+    bf16 branch added to an f32 stream stays f32. ``gelu_approx=False`` is
+    the exact erf GELU (HF's "gelu"); ``ln_dtype`` is the LayerNorms' output
+    dtype (None: the compute dtype), f32 for imported weights."""
 
     def __init__(self, hidden: int, heads: int, mlp_dim: int,
-                 dtype=torch.bfloat16, eps: float = 1e-12, device=None):
+                 dtype=torch.bfloat16, eps: float = 1e-12, device=None,
+                 gelu_approx: bool = True, ln_dtype=None):
         super().__init__()
         self.dtype = dtype
-        self.LayerNorm_0 = LayerNorm(hidden, eps, dtype, device)
+        self.gelu = "tanh" if gelu_approx else "none"
+        ln = dtype if ln_dtype is None else ln_dtype
+        self.LayerNorm_0 = LayerNorm(hidden, eps, ln, device)
         self.SelfAttention_0 = SelfAttention(hidden, heads, dtype, device)
-        self.LayerNorm_1 = LayerNorm(hidden, eps, dtype, device)
+        self.LayerNorm_1 = LayerNorm(hidden, eps, ln, device)
         self.Dense_0 = Dense(hidden, mlp_dim, device=device)
         self.Dense_1 = Dense(mlp_dim, hidden, device=device)
 
@@ -181,7 +196,7 @@ class Block(nn.Module):
         x = x + self.SelfAttention_0(self.LayerNorm_0(x))
         y = dense(self.LayerNorm_1(x), self.Dense_0.kernel, self.Dense_0.bias,
                   self.dtype)
-        y = F.gelu(y, approximate="tanh")
+        y = F.gelu(y, approximate=self.gelu)
         return x + dense(y, self.Dense_1.kernel, self.Dense_1.bias,
                          self.dtype)
 
@@ -228,17 +243,22 @@ class Patchify(nn.Module):
 
 
 class Encoder(nn.Module):
-    """``Block_0 … Block_{depth-1}``, then an f32 ``LayerNorm_0``."""
+    """``Block_0 … Block_{depth-1}``, then an f32 ``LayerNorm_0`` unless
+    ``final_norm=False`` (HF VideoMAE with mean pooling has none);
+    ``gelu_approx`` and ``ln_dtype`` go to every block."""
 
     def __init__(self, depth: int, hidden: int, heads: int, mlp_dim: int,
                  dtype=torch.bfloat16, eps: float = 1e-12,
-                 remat: bool = False, device=None):
+                 remat: bool = False, device=None, final_norm: bool = True,
+                 gelu_approx: bool = True, ln_dtype=None):
         super().__init__()
         self.depth, self.remat = depth, remat
         for i in range(depth):
-            self.add_module(f"Block_{i}", Block(hidden, heads, mlp_dim,
-                                                dtype, eps, device))
-        self.LayerNorm_0 = LayerNorm(hidden, eps, torch.float32, device)
+            self.add_module(f"Block_{i}", Block(
+                hidden, heads, mlp_dim, dtype, eps, device,
+                gelu_approx=gelu_approx, ln_dtype=ln_dtype))
+        self.LayerNorm_0 = (LayerNorm(hidden, eps, torch.float32, device)
+                            if final_norm else None)
 
     def blocks(self):
         return [getattr(self, f"Block_{i}") for i in range(self.depth)]
@@ -246,10 +266,12 @@ class Encoder(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         for blk in self.blocks():
             blk.reset_parameters(generator)
-        self.LayerNorm_0.reset_parameters()
+        if self.LayerNorm_0 is not None:
+            self.LayerNorm_0.reset_parameters()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.LayerNorm_0(_run_blocks(self.blocks(), x, self.remat))
+        x = _run_blocks(self.blocks(), x, self.remat)
+        return x if self.LayerNorm_0 is None else self.LayerNorm_0(x)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,10 @@ factors without ever forming G:
    f32 (M, N) product, the index and the hash like the JAX package's XLA
    path; it runs for CPU tensors and as the kernel's reference.
 
+The same update carries the VideoMAE probe's ``encoder_head`` kernel,
+(1,204,224, 256) at batch 8, over cached frozen features
+(``make_fused_probe_head_step``).
+
 Parameters are a flat dict ``{"encoder.Dense_0.kernel": tensor, ...}``
 whose kernels keep the flax (in, out) layout, so the SR bits, keyed by the
 flat index ``row*N + col``, match the JAX package's.
@@ -330,6 +334,77 @@ def make_fused_linear_step(model, tx_rest, schedule, criterion,
     return step
 
 
-def init_fused_opt_state(params: Mapping[str, torch.Tensor], tx_rest):
-    kernel, rest = split_first_kernel(params)
+def init_fused_opt_state(params: Mapping[str, torch.Tensor], tx_rest,
+                         split=split_first_kernel):
+    kernel, rest = split(params)
     return init_fused_state(kernel), tx_rest.init(rest)
+
+
+# ---------------------------------------------------------------------------
+# VideoMAEProbe head integration: the frozen-feature readout
+# ---------------------------------------------------------------------------
+#
+# The probe's trainable readout is Linear(L*D -> enc_out) -> Linear(-> 100*N)
+# with no activation between (models/videomae.py head_apply). At the
+# production shape the first kernel is (1,204,224, 256), ~308M parameters,
+# fed from cached frozen features: the same rank-B update as the Linear
+# model's first Dense, at M = 1,204,224, N = 256, B = 8.
+
+HEAD_KERNEL = "encoder_head.kernel"
+HEAD_BIAS = "encoder_head.bias"
+
+
+def split_head_kernel(params: Mapping[str, torch.Tensor]):
+    """(encoder_head kernel, params without it) for VideoMAEProbe."""
+    rest = {k: v for k, v in params.items() if k != HEAD_KERNEL}
+    return params[HEAD_KERNEL], rest
+
+
+def merge_head_kernel(rest: Mapping[str, torch.Tensor],
+                      kernel: torch.Tensor) -> dict:
+    return {**rest, HEAD_KERNEL: kernel}
+
+
+def make_fused_probe_head_step(model, tx_rest, schedule, criterion,
+                               apply_updates_rest):
+    """Fused head-only train step over cached frozen features:
+    ``step(params, opt_state, hidden, ap, n_valid, seed)`` with ``hidden``
+    the (B, L, D) backbone output and ``opt_state = (FusedReadoutState,
+    tx_rest state)``.
+
+    As ``VideoMAEProbe.head``, in f32 (the bf16 kernel is promoted); the
+    encoder_head kernel takes the rank-B update in place, and dz comes from
+    autograd on ``z_nob``. Only the head's other leaves (its bias and the
+    decoder head) are differentiated and passed to ``tx_rest``: the rest of
+    the parameters is the frozen backbone, which the step returns as it is.
+    """
+    out_dim = model.config["decoder"]["output_dim"]
+
+    def step(params, opt_state, hidden, ap, n_valid, seed):
+        fstate, rest_state = opt_state
+        kernel, rest = split_head_kernel(params)
+        b = hidden.shape[0]
+        with torch.no_grad():
+            flat = hidden.reshape(b, -1).float()
+            z_nob = flat @ kernel.float()                   # (B, N)
+        z_nob.requires_grad_(True)
+        head = {k: v.detach().requires_grad_(True) for k, v in rest.items()
+                if k.startswith(("encoder_head.", "decoder_head."))}
+        z1 = z_nob + head[HEAD_BIAS].float()
+        out = dense(z1, head["decoder_head.kernel"], head["decoder_head.bias"],
+                    torch.float32).reshape(b, 100, out_dim // 100)
+        loss = criterion(out, ap, n_valid)
+        names = list(head)
+        grads = torch.autograd.grad(loss, [head[k] for k in names] + [z_nob])
+        dz = grads[-1]
+        with torch.no_grad():
+            trained = {k: rest[k] for k in names}
+            upd, rest_state = tx_rest.update(dict(zip(names, grads[:-1])),
+                                             rest_state, trained)
+            rest = {**rest, **apply_updates_rest(trained, upd, seed)}
+            kernel, fstate = fused_readout_update(
+                kernel, flat, dz, fstate, schedule, seed=seed)
+        return (merge_head_kernel(rest, kernel), (fstate, rest_state),
+                loss.detach())
+
+    return step

@@ -302,10 +302,42 @@ _NOT_PORTED = ("is not ported yet; see ROADMAP.md Queue A item 4 "
                "(optimizer names and trainer paths this slice leaves out)")
 
 
-def make_optimizer(config, total_steps: int):
+def is_frozen(name: str, frozen_paths) -> bool:
+    """A leaf is frozen when any part of its dotted name is a frozen path
+    (the JAX package's label rule over the flax tree's keys)."""
+    return any(part in frozen_paths for part in name.split("."))
+
+
+class Frozen:
+    """``optax.multi_transform({"train": inner, "freeze": set_to_zero()})``
+    over a flat dict: frozen leaves get no update (so no weight decay) and
+    no state; the rest go to ``inner``. Updates come back for the trained
+    leaves only, so ``apply_updates`` / ``apply_updates_sr`` leave the
+    frozen ones untouched, where optax adds a zero update (the same values:
+    SR of ``w + 0`` for a bf16 ``w`` rounds back to ``w``)."""
+
+    def __init__(self, inner, frozen_paths):
+        self.inner = inner
+        self.frozen_paths = frozenset(frozen_paths)
+
+    def trainable(self, tree: Mapping) -> dict:
+        return {k: v for k, v in tree.items()
+                if not is_frozen(k, self.frozen_paths)}
+
+    def init(self, params: Mapping[str, torch.Tensor]):
+        return self.inner.init(self.trainable(params))
+
+    def update(self, grads, state, params):
+        return self.inner.update(self.trainable(grads), state,
+                                 self.trainable(params))
+
+
+def make_optimizer(config, total_steps: int, frozen_paths: tuple = ()):
     """(optimizer, schedule) for ``config.optimizer``: AdamW (the yaml
     default) or lean adafactor, with the OneCycle cosine schedule of the JAX
-    trainer. Options outside this slice raise ``NotImplementedError``."""
+    trainer; with ``frozen_paths`` (names of parameter subtrees, the torch
+    ``requires_grad=False`` analog) wrapped in :class:`Frozen`. Options
+    outside this slice raise ``NotImplementedError``."""
     opt = config.optimizer
     accum = int(opt.get("gradient_accumulation_steps", 1) or 1)
     if accum > 1:
@@ -331,16 +363,20 @@ def make_optimizer(config, total_steps: int):
                 "adafactor with param_scale, clipping, momentum or "
                 "adafactor_wd " + _NOT_PORTED
                 + "; set param_scale: false, clipping: null")
-        return Adafactor(schedule), schedule
-    if name != "adamw":
+        tx = Adafactor(schedule)
+    elif name != "adamw":
         raise NotImplementedError(f"optimizer.name={name!r} " + _NOT_PORTED)
-    if opt.get("param_dtype") == "bfloat16_sr":
+    elif opt.get("param_dtype") == "bfloat16_sr":
         raise NotImplementedError(
             "adamw with param_dtype=bfloat16_sr (adamw_sr_bf16) "
             + _NOT_PORTED)
-    if opt.get("lowmem_state"):
+    elif opt.get("lowmem_state"):
         raise NotImplementedError("adamw_lowmem " + _NOT_PORTED)
-    if opt.get("mu_dtype"):
+    elif opt.get("mu_dtype"):
         raise NotImplementedError("adamw mu_dtype " + _NOT_PORTED)
-    return AdamW(schedule, weight_decay=opt.get("wd", 0.01),
-                 eps=opt.get("eps", 1e-8)), schedule
+    else:
+        tx = AdamW(schedule, weight_decay=opt.get("wd", 0.01),
+                   eps=opt.get("eps", 1e-8))
+    if frozen_paths:
+        tx = Frozen(tx, frozen_paths)
+    return tx, schedule

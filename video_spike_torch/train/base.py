@@ -5,7 +5,7 @@ Counterpart of ``video_spike_tpu/train/base.py:BaseTrainer`` on one device
 (reference ``src/trainer/base.py:15-291``):
 
 - input assembly concatenates the flattened ``input: true`` modalities for
-  the Linear family (``_assemble_inputs``);
+  the Linear family (``_assemble_inputs``), raw video otherwise;
 - loss = PoissonNLL(log_input) mean, masked to the valid rows of a padded
   batch;
 - the training set is staged on the device once (``training.device_cache``,
@@ -14,17 +14,23 @@ Counterpart of ``video_spike_tpu/train/base.py:BaseTrainer`` on one device
   cap streams batch by batch instead;
 - with ``optimizer.param_dtype: bfloat16_sr`` leaves of >= 65,536 elements
   are stored in bf16 with stochastically rounded updates, and with
-  ``optimizer.fused_readout`` the Linear model's first kernel is updated by
-  the fused rank-B step (``ops/fused_readout.py``) whose parameter write is
-  the hand-written CUDA kernel;
+  ``optimizer.fused_readout`` the Linear model's first kernel, or the
+  VideoMAE probe's ``encoder_head`` kernel, is updated by the fused rank-B
+  step (``ops/fused_readout.py``) whose parameter write is the hand-written
+  CUDA kernel;
+- a model with frozen parameter paths (``VideoMAEProbe``) keeps them out of
+  the optimizer; with an ``encode`` / ``head`` split its frozen backbone
+  encodes every staged trial once (``_encode_staged_trials``) and the steps
+  and evals run the head on the cached features; ``model.pretrained_backbone``
+  fills the backbone from a checkpoint first;
 - eval accumulates gt/preds per session and reports nanmean bps + per-trial
   R² (on the device for one session, on the host for the test report);
 - ``model_best`` on best eval bps, ``model_last`` (params + optimizer state
   + step) at the end, then ``test_results.npy`` from the best params.
 
 Not in this slice (ROADMAP.md): the device mesh and multihost, the
-profiler, the frozen-feature split, wandb tracking, asynchronous checkpoint
-flushes and figure plotting.
+profiler, wandb tracking, asynchronous checkpoint flushes and figure
+plotting.
 """
 
 from __future__ import annotations
@@ -40,12 +46,14 @@ import torch
 from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
 from video_spike_torch.data.dataset import input_modalities
+from video_spike_torch.models.videomae import head_apply
 from video_spike_torch.ops import fused_readout as fr
 from video_spike_torch.ops.metrics import device_eval_metrics, metrics_list
 from video_spike_torch.ops.optim import (
     MASK32,
     apply_updates,
     apply_updates_sr,
+    is_frozen,
     make_optimizer,
 )
 from video_spike_torch.ops.poisson import poisson_nll_mean
@@ -77,10 +85,6 @@ class BaseTrainer:
         self.log = make_logger(header="[train]")
         self.input_mods = input_modalities(config)
         self.model_class = config.model.model_class
-        if callable(getattr(model, "frozen_param_paths", None)):
-            raise NotImplementedError(
-                "frozen parameter paths (the frozen-feature probe) are not "
-                "ported yet; see ROADMAP.md Queue A item 11")
         if config.get("save_plot"):
             raise NotImplementedError(
                 "save_plot (figures) is not ported yet; see ROADMAP.md "
@@ -97,7 +101,20 @@ class BaseTrainer:
         total_steps = (len(dataset_split_dict["train"])
                        // config.training.train_batch_size
                        * config.training.num_epochs)
-        self.tx, self.schedule = make_optimizer(config, total_steps)
+        frozen = getattr(model, "frozen_param_paths", None)
+        self._frozen_paths = tuple(frozen()) if callable(frozen) else ()
+        self.tx, self.schedule = make_optimizer(
+            config, total_steps, frozen_paths=self._frozen_paths)
+        # frozen-feature training: with frozen subtrees and an encode/head
+        # split (VideoMAEProbe) every trial is encoded once and the steps
+        # train the head on cached features; the optimizer cannot move the
+        # frozen encoder, so the features stay exact for the whole run
+        self._frozen_split = bool(
+            self._frozen_paths and callable(getattr(model, "encode", None))
+            and callable(getattr(model, "head", None)))
+        self._features_staged = False
+        self.encode_seconds = 0.0
+        self.n_params = 0
 
         self._device_cache_enabled = bool(
             config.training.get("device_cache", True))
@@ -122,11 +139,16 @@ class BaseTrainer:
                           f"numerics but optimizer.name={opt_name} "
                           f"(set name: adafactor)")
             self._fused_readout = False
+        elif (self._fused_readout and self._frozen_paths
+              and not self._frozen_split):
+            self.log.info("fused_readout disabled: frozen paths without an "
+                          "encode/head split")
+            self._fused_readout = False
         self._apply_updates = (apply_updates_sr if self._sr_params
                                else apply_updates)
 
         self.opt_state = None
-        self._step_fn = None
+        self._step_fn = self._feature_step_fn = None
         self._fused_inner = None
         self._initialized = False
         self.global_step = 0
@@ -175,60 +197,106 @@ class BaseTrainer:
             return
         self.model.to(self.device)
         self.model.reset_parameters(self.generator)
+        pretrained = self.config.model.get("pretrained_backbone")
+        if pretrained:
+            # the reference's from_pretrained("MCG-NJU/videomae-base") is an
+            # explicit checkpoint on disk here
+            from video_spike_torch.models.hf_convert import (
+                load_pretrained_into_probe)
+            self._set_params(load_pretrained_into_probe(self.params,
+                                                        pretrained))
+            self.log.info(f"loaded pretrained backbone from {pretrained}")
         if self._sr_params:
             for p in self.model.parameters():
                 if p.dtype == torch.float32 and p.numel() >= SR_MIN_ELEMENTS:
                     p.data = p.data.to(torch.bfloat16)
         params = self.params
+        split = None
         if self._fused_readout:
             min_kernel = int(self.config.optimizer.get(
                 "fused_min_kernel", 1 << 22))
-            kern = params.get(fr.FIRST_KERNEL)
-            if (type(self.model).__name__ == "LinearModel"
-                    and kern is not None and kern.ndim == 2
+            model_name = type(self.model).__name__
+            kern = None
+            if model_name == "LinearModel":
+                kern, make, split = (params.get(fr.FIRST_KERNEL),
+                                     fr.make_fused_linear_step,
+                                     fr.split_first_kernel)
+            elif self._frozen_split:
+                # the probe's head-only step: it consumes frozen features
+                kern, make, split = (params.get(fr.HEAD_KERNEL),
+                                     fr.make_fused_probe_head_step,
+                                     fr.split_head_kernel)
+            if (kern is not None and kern.ndim == 2
                     and kern.numel() >= min_kernel):
-                self._fused_inner = fr.make_fused_linear_step(
+                self._fused_inner = make(
                     self.model, self.tx, self.schedule, self.criterion,
                     self._apply_updates)
                 self.log.info(
                     f"fused readout update on {tuple(kern.shape)} kernel "
                     f"(rank-B factored stats, no materialized gradient)")
             else:
+                split = None
                 self.log.info("fused_readout requested but the model has "
                               "no eligible readout kernel; using the "
                               "standard step")
-        if self._fused_inner is not None:
-            self.opt_state = fr.init_fused_opt_state(params, self.tx)
-            self._step_fn = self._fused_inner
+        if split is not None:
+            self.opt_state = fr.init_fused_opt_state(params, self.tx,
+                                                     split=split)
         else:
             self.opt_state = self.tx.init(params)
-            self._step_fn = self._make_standard_step()
-        n_params = sum(p.numel() for p in params.values())
+        self._step_fn, self._feature_step_fn = self._make_steps()
+        self.n_params = sum(p.numel() for p in params.values())
         self.log.info(f"initialized {type(self.model).__name__}: "
-                      f"{n_params/1e6:.1f}M params on {self.device}")
+                      f"{self.n_params/1e6:.1f}M params on {self.device}")
         self._initialized = True
 
-    def _make_standard_step(self):
-        model, tx, criterion = self.model, self.tx, self.criterion
-        apply_fn = self._apply_updates
+    def _make_steps(self):
+        """(the step on raw inputs, the step on staged frozen features or
+        None); each is ``step(params, opt_state, x, ap, n_valid, seed)``."""
+        model = self.model
+        if self._fused_inner is None:
+            full = self._make_standard_step(
+                lambda p, x: torch.func.functional_call(model, p, (x,)))
+            if not self._frozen_split:
+                return full, None
+            return full, self._make_standard_step(
+                lambda p, x: head_apply(p, x, model.out_dim))
+        if not self._frozen_split:
+            return self._fused_inner, None
+        # the fused head step reads features: raw inputs are encoded first
+        fused = self._fused_inner
+
+        def encode_then_fused(params, opt_state, inputs, ap, n_valid, seed):
+            with torch.no_grad():
+                hidden = model.encode(inputs)
+            return fused(params, opt_state, hidden, ap, n_valid, seed)
+
+        return encode_then_fused, fused
+
+    def _make_standard_step(self, apply):
+        """A train step through ``apply(params, x)`` that differentiates
+        and updates every leaf outside the frozen paths."""
+        tx, criterion = self.tx, self.criterion
+        apply_fn, frozen = self._apply_updates, self._frozen_paths
 
         def train_step(params, opt_state, inputs, ap, n_valid, seed):
             leaves = {k: v.detach().requires_grad_(True)
-                      for k, v in params.items()}
-            out = torch.func.functional_call(model, leaves, (inputs,))
+                      for k, v in params.items() if not is_frozen(k, frozen)}
+            out = apply({**params, **leaves}, inputs)
             loss = criterion(out, ap, n_valid)
             names = list(leaves)
             grads = dict(zip(names, torch.autograd.grad(
                 loss, [leaves[k] for k in names])))
             with torch.no_grad():
-                updates, opt_state = tx.update(grads, opt_state, params)
-                params = apply_fn(params, updates, seed)
+                trained = {k: params[k] for k in names}
+                updates, opt_state = tx.update(grads, opt_state, trained)
+                params = {**params, **apply_fn(trained, updates, seed)}
             return params, opt_state, loss.detach()
 
         return train_step
 
-    def _step(self, inputs, ap, n_valid) -> torch.Tensor:
-        params, self.opt_state, loss = self._step_fn(
+    def _step(self, inputs, ap, n_valid, step_fn=None) -> torch.Tensor:
+        params, self.opt_state, loss = (step_fn or self._step_fn)(
             self.params, self.opt_state, inputs, ap, n_valid,
             self.global_step & MASK32)
         self._set_params(params)
@@ -267,7 +335,47 @@ class BaseTrainer:
         self.log.info(f"staged {X.nbytes/1e6:.0f} MB of trials on "
                       f"{self.device} ({self._n_train} trials); epochs are "
                       f"now transfer-free")
+        if self._frozen_split:
+            feats = self._encode_staged_trials()
+            if feats is not None:       # the raw video is dropped here
+                self._dev_data = (feats, self._dev_data[1])
+                self._staged_bytes = feats.nbytes + A.nbytes
+                self._features_staged = True
+                self.log.info(f"frozen-encoder features staged "
+                              f"({feats.nbytes/1e6:.0f} MB, {feats.dtype}) "
+                              f"in {self.encode_seconds:.2f} s; train steps "
+                              f"are now head-only")
         return True
+
+    @torch.no_grad()
+    def _encode_staged_trials(self) -> Optional[torch.Tensor]:
+        """The frozen encoder over every staged trial, in chunks of the
+        batch size (the ragged tail padded by repeating the last trial), or
+        None when the staging peak would pass ``device_cache_gb``: the raw
+        video, the chunks and their concatenation coexist until the raw
+        video is dropped."""
+        X_all, A_all = self._dev_data
+        rows = X_all.shape[0]
+        bs = min(self.config.training.train_batch_size, rows)
+        t0 = time.perf_counter()
+        one = self.model.encode(X_all[:1])
+        feat_bytes = rows * one.numel() * one.element_size()
+        peak = X_all.nbytes + 2 * feat_bytes + A_all.nbytes
+        if peak > self._device_cache_gb * 1e9:
+            self.log.info(f"frozen features ({feat_bytes/1e9:.1f} GB, "
+                          f"staging peak {peak/1e9:.1f} GB) exceed the "
+                          f"device cache cap; keeping raw-input steps")
+            return None
+        chunks = []
+        for s in range(0, rows, bs):
+            idx = np.minimum(np.arange(s, s + bs), rows - 1)
+            chunks.append(self.model.encode(
+                X_all.index_select(0, self._to_device(idx))))
+        feats = torch.cat(chunks, dim=0)[:rows]
+        if feats.device.type == "cuda":
+            torch.cuda.synchronize(feats.device)
+        self.encode_seconds = time.perf_counter() - t0
+        return feats
 
     def _epoch_result(self, losses) -> dict:
         loss_vals = torch.stack(losses).float().cpu().numpy()  # one sync
@@ -278,6 +386,8 @@ class BaseTrainer:
 
     def _train_epoch_cached(self) -> dict:
         X_all, ap_all = self._dev_data
+        step_fn = (self._feature_step_fn if self._features_staged
+                   else self._step_fn)
         bs = self.config.training.train_batch_size
         perm = self._rng.permutation(self._n_train)
         losses = []
@@ -288,7 +398,8 @@ class BaseTrainer:
                 idx = np.concatenate([idx, np.repeat(idx[-1:], bs - n_valid)])
             idx_d = self._to_device(idx.astype(np.int64))
             losses.append(self._step(X_all.index_select(0, idx_d),
-                                     ap_all.index_select(0, idx_d), n_valid))
+                                     ap_all.index_select(0, idx_d), n_valid,
+                                     step_fn))
         return self._epoch_result(losses)
 
     def train_epoch(self) -> dict:
@@ -304,10 +415,14 @@ class BaseTrainer:
 
     def _stage_eval_batch(self, batch):
         self._init_if_needed()
-        inputs = self._assemble_inputs(batch)
+        inputs = self._to_device(self._assemble_inputs(batch))
+        if self._frozen_split:
+            # frozen features, not raw video: evals rerun only the head
+            with torch.no_grad():
+                inputs = self.model.encode(inputs)
         ap = np.asarray(batch["ap"], np.float32)
-        return (self._to_device(inputs), self._to_device(ap), ap.shape[0],
-                ap, list(batch["eid"]))
+        return (inputs, self._to_device(ap), ap.shape[0], ap,
+                list(batch["eid"]))
 
     def _eval_batches(self, loader, phase: str):
         """Eval inputs are static across epochs: stage them on the device
@@ -342,8 +457,9 @@ class BaseTrainer:
         light = phase != "test" and len(split_eids) == 1
         session = {e: {"gt": [], "preds": []} for e in split_eids}
         losses, dev_outs, dev_gts = [], [], []
+        eval_fn = self.model.head if self._frozen_split else self.model
         for x, ap_d, n_valid, ap, eids in self._eval_batches(loader, phase):
-            out = self.model(x)
+            out = eval_fn(x)
             losses.append(poisson_nll_mean(out, ap_d, n_valid))
             if light:
                 dev_outs.append(out[:n_valid])
@@ -455,6 +571,9 @@ class BaseTrainer:
                 "train_losses": list(self.train_losses),
                 "eval_history": list(self.eval_history),
                 "fused_readout": self._fused_inner is not None,
+                "n_params": self.n_params,
+                "features_staged": self._features_staged,
+                "encode_seconds": self.encode_seconds,
                 "log_dir": self.log_dir, **extra}
 
     def test_model(self) -> Optional[dict]:
