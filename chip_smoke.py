@@ -59,10 +59,29 @@ Phases, one JSON line each on stdout:
     trial on the card (bf16 and f32) against f32 on the CPU, at 4 frames;
 14. probe_step_time: ms/step of the staged fused head step, frames/s, the
     per-trial encode and peak memory;
-15. a ``{"kernels": [...]}`` line (the fused readout runs on the Linear
-    and probe paths; the VTT, RRR, SSL and pretraining paths must launch
-    it 0 times);
-16. last line: ``{"ok": true, "device": {...}}``.
+15. serve_main_path: ``cli.serve.make_app`` over the Linear phase's
+    ``model_best.pt`` (full width, the bf16 kernel as stored, buckets 1-16
+    warmed), ``predict`` timed at each bucket, then ``serve_http`` answers
+    128 requests of one raw uint8 trial (every 16th an ``X-Batched`` batch
+    of 3) from 16 client threads; each response against the model's direct
+    forward on its row; ``/stats`` latencies, requests/s, peak memory;
+16. vtt_serve: an ``InferenceSession`` over the VTT phase's
+    ``model_best.pt``, 3 rows of mixed session ids in the 4-bucket and the
+    same rows with the ids left out, against the direct forward;
+17. export: ``cli.export_model`` on the full-width Linear checkpoint at
+    batch 8 and ``load_exported`` at batches 3 and 8, and the VTT with
+    session ids, against ``session.predict``; both with a symbolic batch;
+18. cebra_main_path: ``cli.use_cebra`` (5,000 iterations, batch 512, 5
+    dimensions) on the RRR phase's session (8,640 frames of 64×96), then
+    ``--use_pca``, ``cli.unify_cebra`` and ``cli.train_rrr --input_mod
+    cebra`` on the card;
+19. cebra_card_vs_cpu: under PyTorch's default backend flags, the fitted
+    encoder's ``transform`` on the card against the CPU, and
+    ``get_pca_embedding`` (covariance and Gram branches) up to sign;
+20. a ``{"kernels": [...]}`` line (the fused readout runs on the Linear
+    and probe paths; the VTT, RRR, SSL, pretraining, serving, export and
+    CEBRA paths must launch it 0 times);
+21. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure is an uncaught exception and a non-zero exit. Without a CUDA
 card, or without the rest of the repository beside it, it exits non-zero
@@ -171,6 +190,38 @@ PROBE_LR = 1e-6
 # f32 differs by summation order only, with TF32 off
 PROBE_BF16_REL_BOUND = 2e-2
 PROBE_F32_REL_BOUND = 1e-4
+
+# serving (cli/serve.py over the Linear phase's model_best.pt): 128 requests
+# from 16 client threads, every SERVE_BATCHED_EVERY-th an X-Batched batch
+SERVE_MAX_BATCH = 16
+SERVE_BUCKETS = (1, 2, 4, 8, 16)
+SERVE_REQUESTS = 128
+SERVE_CLIENTS = 16
+SERVE_BATCHED_EVERY = 16
+SERVE_BATCHED_ROWS = 3
+SERVE_TRIALS = 16            # distinct fixture trials the requests carry
+SERVE_PREDICT_REPS = 5       # predict calls timed at each bucket
+# a response against the model's direct forward on its row, max |d| / max
+# |ref|: the served batch and the direct one differ in size, so the bf16
+# GEMM may sum in another order and round an output by a bf16 ulp (2^-8 to
+# 2^-7 of it; measured 7.35e-3 on an H100); also the VTT's and the
+# exports' bound (measured 0)
+SERVE_REL_BOUND = 1e-2
+EXPORT_BATCH = 8
+EXPORT_RUN_BATCHES = (3, 8)
+# CEBRA (cli/use_cebra.py) on the RRR phase's 80-trial session, 64x96
+# whisker crop: the recipe's 5,000 iterations at batch 512, 5 dimensions
+CEBRA_OUT_DIM = 5
+CEBRA_ITERATIONS = 5000
+CEBRA_TRAIN_TEST_TRIALS = 72  # 64 train + 8 test of the 80
+CEBRA_PIXELS = 64 * 96
+# card vs CPU: the f32 transform (matmul convs, TF32 off for matmuls under
+# PyTorch's defaults) differs by summation order only; PCA columns up to
+# sign, max |d| / max |cpu|: float32 against float64 on the CPU gives 4.9e-6
+# (covariance, 8,640 frames) and 4.0e-5 (Gram, 4,800 frames)
+CEBRA_F32_REL_BOUND = 1e-4
+PCA_REL_BOUND = 2e-4
+PCA_GRAM_TRIALS = 40         # 4,800 frames <= 6,144 pixels: the Gram branch
 
 
 def emit(phase: str, **fields) -> None:
@@ -1288,6 +1339,465 @@ def phase_probe_step_time(work: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 15-17: serving and export
+# ---------------------------------------------------------------------------
+
+def _ckpt_dir(root: Path) -> Path:
+    """The directory of the one ``model_best.pt`` under `root`."""
+    found = sorted(root.rglob("model_best.pt"))
+    if len(found) != 1:
+        raise AssertionError(f"want one model_best.pt under {root}: {found}")
+    return found[0].parent
+
+
+def _serve_yaml(work: Path) -> Path:
+    """configs/model/linear_video.yaml with the widths ``cli/train.py``
+    fills in from the data (1,966,080 in, 100 x 436 out)."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "configs/model/linear_video.yaml")
+                         .read_text())
+    cfg["encoder"]["input_dim"] = KERNEL_M
+    cfg["decoder"]["output_dim"] = 100 * N_NEURONS
+    path = work / "serve_linear_video.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def _fixture_trials(data: Path, eid: str, n: int):
+    """The uint8 video of n of a fixture session's trials."""
+    import numpy as np
+
+    from video_spike_torch.data.tar_io import read_trial_tar
+
+    files = sorted(data.glob(f"{eid}_*.tar"))[:n]
+    return np.stack([read_trial_tar(str(f))["video"] for f in files])
+
+
+def _rel_err(got, ref) -> float:
+    import numpy as np
+
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{got.shape} vs {ref.shape}, or not finite")
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def _post(url: str, arr, batched: bool):
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    req = urllib.request.Request(
+        f"{url}/predict", data=buf.getvalue(), method="POST",
+        headers={"X-Batched": "1"} if batched else {})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return np.load(io.BytesIO(r.read()))
+
+
+def phase_serve_main_path(work: Path) -> dict:
+    """``cli.serve.make_app`` over the Linear phase's ``model_best.pt`` (full
+    width, the bf16 kernel as stored) with every bucket warmed; ``predict``
+    timed at each bucket; then ``serve_http`` takes SERVE_REQUESTS requests
+    of one raw uint8 trial each from SERVE_CLIENTS threads (every
+    SERVE_BATCHED_EVERY-th an X-Batched batch of SERVE_BATCHED_ROWS), and
+    each response is held against the model's direct forward on its row."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from video_spike_torch.cli import serve as serve_cli
+    from video_spike_torch.ops import fused_readout as fr
+    from video_spike_torch.serve import serve_http
+
+    t_phase = time.perf_counter()
+    trials = _fixture_trials(work / "data", "smokeeid0", SERVE_TRIALS)
+    rows = trials.reshape(SERVE_TRIALS, -1)           # uint8 (16, 1966080)
+    torch.cuda.reset_peak_memory_stats()
+    fr.apply_scaled_outer.launches = 0
+    t0 = time.perf_counter()
+    _, session, batcher = serve_cli.make_app([
+        "--model_config", str(_serve_yaml(work)),
+        "--ckpt_dir", str(_ckpt_dir(work / "logs")),
+        "--max_batch", str(SERVE_MAX_BATCH), "--input_dim", str(KERNEL_M),
+        "--host", "127.0.0.1", "--port", "0", "--device", "cuda"])
+    load_s = time.perf_counter() - t0
+    kernel = session.params["encoder.Dense_0.kernel"]
+    if (tuple(kernel.shape) != (KERNEL_M, KERNEL_N)
+            or kernel.dtype != torch.bfloat16
+            or session.stats["compiles"] != len(SERVE_BUCKETS)
+            or session.buckets != list(SERVE_BUCKETS)):
+        raise AssertionError(f"session: {tuple(kernel.shape)} "
+                             f"{kernel.dtype}, {session.stats}, "
+                             f"{session.buckets}")
+    predict_ms = {}
+    for b in SERVE_BUCKETS:
+        x = rows[np.arange(b) % SERVE_TRIALS]
+        times = []
+        for _ in range(SERVE_PREDICT_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            session.predict(x)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        predict_ms[str(b)] = statistics.median(times)
+
+    server = serve_http(batcher, port=0, host="127.0.0.1", block=False)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    plan = [(i, [(i + j) % SERVE_TRIALS for j in range(SERVE_BATCHED_ROWS)]
+             if i % SERVE_BATCHED_EVERY == SERVE_BATCHED_EVERY // 2
+             else [i % SERVE_TRIALS]) for i in range(SERVE_REQUESTS)]
+    answers, errors = {}, []
+
+    def client(k: int) -> None:
+        try:
+            for i, idx in plan[k::SERVE_CLIENTS]:
+                batched = len(idx) > 1
+                answers[i] = _post(url, rows[idx] if batched
+                                   else rows[idx[0]], batched)
+        except Exception as e:        # re-raised below, after shutdown
+            errors.append(e)
+
+    try:
+        with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
+            if r.read() != b"ok":
+                raise AssertionError("healthz")
+        clients = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        serve_s = time.perf_counter() - t0
+        with urllib.request.urlopen(f"{url}/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+    if errors:
+        raise errors[0]
+    launches = fr.apply_scaled_outer.launches
+    # the references: the model's forward on each row alone, after shutdown
+    with torch.inference_mode():
+        ref = np.stack([session.model(torch.from_numpy(r[None]).cuda())
+                        .float().cpu().numpy()[0] for r in rows])
+    errs = [_rel_err(answers[i], ref[idx] if len(idx) > 1 else ref[idx[0]])
+            for i, idx in plan]
+    n_rows = sum(len(idx) for _, idx in plan)
+    out = {"requests": SERVE_REQUESTS, "rows": n_rows,
+           "clients": SERVE_CLIENTS,
+           "batched_requests": sum(len(idx) > 1 for _, idx in plan),
+           "stats": stats, "serve_seconds": serve_s,
+           "requests_per_s": SERVE_REQUESTS / serve_s,
+           "rows_per_s": n_rows / serve_s,
+           "predict_ms_by_bucket": predict_ms, "load_seconds": load_s,
+           "session_stats": session.stats,
+           "max_rel_err": max(errs), "bound": SERVE_REL_BOUND,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "fused_readout_launches": launches,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit("serve_main_path", **out)
+    del session, batcher
+    _free_card()
+    if stats["served"] != n_rows or max(errs) > SERVE_REL_BOUND or launches:
+        raise AssertionError(f"serving: {out}")
+    return out
+
+
+def _vtt_trials(work: Path, n: int):
+    """n trials of the VTT fixture (sessions in turn) and their ids."""
+    import numpy as np
+
+    videos, sids = [], []
+    for s, eid in enumerate(VTT_EIDS):
+        videos.append(_fixture_trials(work / "vtt_data", eid, n))
+        sids.append(np.full(n, s, np.int32))
+    order = np.arange(n * len(VTT_EIDS)).reshape(len(VTT_EIDS), n).T.ravel()
+    return (np.concatenate(videos)[order][:n],
+            np.concatenate(sids)[order][:n])
+
+
+def _vtt_session(work: Path):
+    import yaml
+
+    from video_spike_torch.serve import InferenceSession
+
+    return InferenceSession.from_checkpoint(
+        yaml.safe_load((ROOT / "configs/model/vtt_video.yaml").read_text()),
+        _ckpt_dir(work / "vtt_logs"), device="cuda")
+
+
+def phase_vtt_serve(work: Path) -> dict:
+    """An InferenceSession over the VTT phase's ``model_best.pt`` (the
+    session and neuron counts read off the checkpoint): 3 rows of mixed
+    session ids in the 4-bucket, and the same rows with the ids left out
+    (session 0), each against the direct forward."""
+    import numpy as np
+    import torch
+
+    from video_spike_torch.ops import fused_readout as fr
+
+    t_phase = time.perf_counter()
+    fr.apply_scaled_outer.launches = 0
+    session = _vtt_session(work)
+    video, _ = _vtt_trials(work, 3)
+    sids = np.asarray([4, 0, 2], np.int32)
+    got = session.predict(video, session_ids=sids)
+    got0 = session.predict(video)
+    with torch.inference_mode():
+        v = torch.from_numpy(video).cuda()
+        ref = session.model(v, torch.from_numpy(sids).long().cuda())
+        ref0 = session.model(v, torch.zeros(3, dtype=torch.long,
+                                            device="cuda"))
+    errs = {"ids": _rel_err(got, ref.float().cpu()),
+            "ids_left_out": _rel_err(got0, ref0.float().cpu())}
+    launches = fr.apply_scaled_outer.launches
+    out = {"n_sessions": session.model.n_sessions,
+           "max_neurons": session.model.max_neurons,
+           "shape": list(got.shape), "session_ids": sids.tolist(),
+           "stats": session.stats, "max_rel_err": errs,
+           "bound": SERVE_REL_BOUND, "fused_readout_launches": launches,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit("vtt_serve", **out)
+    del session
+    _free_card()
+    if (max(errs.values()) > SERVE_REL_BOUND or launches
+            or out["stats"]["padded_rows"] != 2
+            or (out["n_sessions"], out["max_neurons"])
+            != (len(VTT_NEURONS), max(VTT_NEURONS))):
+        raise AssertionError(f"VTT serving: {out}")
+    return out
+
+
+def phase_export(work: Path) -> dict:
+    """``cli.export_model`` on the full-width Linear checkpoint at batch 8,
+    then ``load_exported`` at batches 3 and 8 against ``session.predict``;
+    the same for the VTT with session ids. Both must export with a symbolic
+    batch."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from video_spike_torch.cli import export_model
+    from video_spike_torch.ops import fused_readout as fr
+    from video_spike_torch.serve import InferenceSession
+    from video_spike_torch.serve.export import load_exported, save_exported
+
+    t_phase = time.perf_counter()
+    out_dir = work / "export"
+    fr.apply_scaled_outer.launches = 0
+    result = {}
+    # Linear: float inputs in [0, 1] (the export's sample dtype)
+    x = (_fixture_trials(work / "data", "smokeeid0", EXPORT_BATCH)
+         .reshape(EXPORT_BATCH, -1).astype(np.float32) / 255)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    path = export_model.main([
+        "--model_config", str(_serve_yaml(work)),
+        "--ckpt_dir", str(_ckpt_dir(work / "logs")),
+        "--input_dim", str(KERNEL_M), "--batch", str(EXPORT_BATCH),
+        "--out", str(out_dir / "linear.pt2"), "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    export_peak = torch.cuda.max_memory_allocated() / 1e9
+    _free_card()
+    t0 = time.perf_counter()
+    fn = load_exported(path)
+    load_s = time.perf_counter() - t0
+    polymorphic = fn.polymorphic
+    got = {b: fn(x[:b]).float().cpu().numpy() for b in EXPORT_RUN_BATCHES}
+    del fn
+    _free_card()
+    session = InferenceSession.from_checkpoint(
+        yaml.safe_load(_serve_yaml(work).read_text()),
+        _ckpt_dir(work / "logs"), device="cuda")
+    result["linear"] = {
+        "polymorphic": polymorphic,
+        "seconds": export_s, "load_seconds": load_s,
+        "bytes": Path(path).stat().st_size, "peak_mem_gb": export_peak,
+        "max_rel_err": {str(b): _rel_err(got[b], session.predict(x[:b]))
+                        for b in EXPORT_RUN_BATCHES}}
+    del session
+    _free_card()
+
+    session = _vtt_session(work)
+    video, sids = _vtt_trials(work, EXPORT_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    path = save_exported(session.model, session.params, video,
+                         out_dir / "vtt.pt2", session_ids=sids)
+    export_s = time.perf_counter() - t0
+    fn = load_exported(path)
+    result["vtt"] = {
+        "polymorphic": fn.polymorphic, "seconds": export_s,
+        "bytes": Path(path).stat().st_size,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "max_rel_err": {str(b): _rel_err(
+            fn(video[:b], sids[:b].astype(np.int64)).float().cpu().numpy(),
+            session.predict(video[:b], session_ids=sids[:b]))
+            for b in EXPORT_RUN_BATCHES}}
+    del session, fn
+    _free_card()
+    launches = fr.apply_scaled_outer.launches
+    out = {**result, "bound": SERVE_REL_BOUND,
+           "fused_readout_launches": launches,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit("export", **out)
+    if launches or not all(r["polymorphic"] for r in result.values()) \
+            or any(e > SERVE_REL_BOUND for r in result.values()
+                   for e in r["max_rel_err"].values()):
+        raise AssertionError(f"export: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 18-19: CEBRA and PCA embeddings, then RRR on them
+# ---------------------------------------------------------------------------
+
+def _cebra_argv(work: Path) -> list:
+    return _rrr_args() + ["--eid", RRR_EID,
+                          "--data_dir", str(work / "rrr" / "fixture"),
+                          "--out_dim", str(CEBRA_OUT_DIM),
+                          "--max_iterations", str(CEBRA_ITERATIONS),
+                          "--device", "cuda"]
+
+
+def phase_cebra_main_path(work: Path) -> tuple:
+    """``cli.use_cebra`` (the recipe: 5,000 iterations, batch 512, 32
+    units, 5 dimensions) on the RRR phase's session, ``--use_pca``,
+    ``cli.unify_cebra``, then ``cli.train_rrr --input_mod cebra`` on the
+    card. Returns (the phase's numbers, the fitted CEBRA)."""
+    import numpy as np
+    import torch
+
+    from video_spike_torch.cli import train_rrr, unify_cebra, use_cebra
+    from video_spike_torch.ops import fused_readout as fr
+
+    t_phase = time.perf_counter()
+    run = work / "cebra"
+    (run / "data").mkdir(parents=True)
+    argv = _cebra_argv(work)
+    torch.cuda.reset_peak_memory_stats()
+    fr.apply_scaled_outer.launches = 0
+    with contextlib.chdir(run):
+        t0 = time.perf_counter()
+        cebra = use_cebra.main(argv, save_path=None)
+        cebra_s = time.perf_counter() - t0
+        pca = use_cebra.main(argv + ["--use_pca"], save_path=None)
+        merged = unify_cebra.main(["--label", "cebra"])
+        t0 = time.perf_counter()
+        rrr = train_rrr.main(_rrr_args() + ["--input_mod", "cebra",
+                                            "--device", "cuda"])[RRR_EID]
+        rrr_s = time.perf_counter() - t0
+        files = {p: (run / p).is_file()
+                 for p in (cebra["path"], pca["path"], merged)}
+        saved = np.load(run / cebra["path"], allow_pickle=True).item()
+    launches = fr.apply_scaled_outer.launches
+    losses = cebra["losses"]
+    frames = CEBRA_TRAIN_TEST_TRIALS * T_FRAMES
+    bps = float(np.nanmean(rrr["co_bps"]))
+    out = {"frames": frames, "pixels": CEBRA_PIXELS,
+           "pca_branch": "covariance" if frames > CEBRA_PIXELS else "gram",
+           "iterations": CEBRA_ITERATIONS,
+           "fit_seconds": cebra["seconds"],
+           "ms_per_iteration": cebra["seconds"] / CEBRA_ITERATIONS * 1e3,
+           "use_cebra_seconds": cebra_s, "pca_seconds": pca["seconds"],
+           "losses_first_last": [losses[0], losses[-1]],
+           "n_losses": len(losses),
+           "embedding_shape": list(cebra["embedding"].shape),
+           "pca_shape": list(pca["embedding"].shape),
+           "train_X_shape": list(saved[RRR_EID]["X"][0].shape),
+           "files": files, "rrr_mean_bps": bps, "rrr_seconds": rrr_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "fused_readout_launches": launches,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit("cebra_main_path", **out)
+    want = [CEBRA_TRAIN_TEST_TRIALS, T_FRAMES, CEBRA_OUT_DIM]
+    if (not all(files.values()) or out["embedding_shape"] != want
+            or out["pca_shape"] != want
+            or len(losses) != CEBRA_ITERATIONS // 100
+            or not all(map(math.isfinite, losses))
+            or not losses[-1] < losses[0] or not math.isfinite(bps)
+            or not np.isfinite(cebra["embedding"]).all()
+            or not np.isfinite(pca["embedding"]).all() or launches):
+        raise AssertionError(f"CEBRA path: {out}")
+    return out, cebra["model"]
+
+
+def _up_to_sign_rel_err(got, ref) -> float:
+    import numpy as np
+
+    g = np.asarray(got, np.float64).reshape(-1, got.shape[-1])
+    r = np.asarray(ref, np.float64).reshape(-1, ref.shape[-1])
+    if g.shape != r.shape or not np.isfinite(g).all():
+        raise AssertionError(f"{g.shape} vs {r.shape}, or not finite")
+    return float(max(min(np.abs(g[:, k] - r[:, k]).max(),
+                         np.abs(g[:, k] + r[:, k]).max())
+                     for k in range(r.shape[1])) / np.abs(r).max())
+
+
+def phase_cebra_card_vs_cpu(work: Path, model) -> dict:
+    """Under PyTorch's default backend flags (cuDNN TF32 on, matmul TF32
+    off): the fitted encoder's ``transform`` of every frame on the card
+    against the same params on the CPU, and ``get_pca_embedding`` on the
+    card against the CPU on both branches, up to a sign per column."""
+    import torch
+
+    from video_spike_torch.cli import use_cebra
+    from video_spike_torch.models.cebra import (CEBRA, Offset10Encoder,
+                                                get_pca_embedding)
+
+    t_phase = time.perf_counter()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False       # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        video = use_cebra.build(_cebra_argv(work))["X"]
+        flat = video.reshape(-1, CEBRA_PIXELS)
+        t0 = time.perf_counter()
+        card = model.transform(flat)
+        card_s = time.perf_counter() - t0
+        cpu = CEBRA(output_dimension=CEBRA_OUT_DIM, device="cpu")
+        cpu.model = Offset10Encoder(CEBRA_PIXELS, model.num_units,
+                                    CEBRA_OUT_DIM)
+        cpu.params = {k: v.cpu() for k, v in model.params.items()}
+        transform_err = _rel_err(card, cpu.transform(flat))
+        pca = {}
+        for branch, v in (("covariance", video),
+                          ("gram", video[:PCA_GRAM_TRIALS])):
+            t0 = time.perf_counter()
+            got = get_pca_embedding(v, CEBRA_OUT_DIM, device="cuda")
+            pca[f"{branch}_card_seconds"] = time.perf_counter() - t0
+            pca[branch] = _up_to_sign_rel_err(
+                got, get_pca_embedding(v, CEBRA_OUT_DIM, device="cpu"))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    out = {"frames": flat.shape[0], "transform_max_rel_err": transform_err,
+           "transform_bound": CEBRA_F32_REL_BOUND,
+           "transform_card_seconds": card_s, "pca_max_rel_err": pca,
+           "pca_bound": PCA_REL_BOUND,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit("cebra_card_vs_cpu", **out)
+    _free_card()
+    if transform_err > CEBRA_F32_REL_BOUND or max(
+            pca["covariance"], pca["gram"]) > PCA_REL_BOUND:
+        raise AssertionError(f"CEBRA card vs CPU beyond its bound: {out}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "video_spike_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1319,12 +1829,26 @@ def main() -> int:
         probe = phase_probe_main_path(work, backbone)
         phase_probe_card_vs_cpu()
         phase_probe_step_time(work)
+        serve = phase_serve_main_path(work)
+        vtt_serve = phase_vtt_serve(work)
+        export = phase_export(work)
+        cebra, cebra_model = phase_cebra_main_path(work)
+        phase_cebra_card_vs_cpu(work, cebra_model)
+        del cebra_model
     # launches on the paths that run the kernel (every other path: 0)
     kernel["launches"] = main_path["launches"] + probe["launches"]
     kernel["launches_by_path"] = {
         "linear": main_path["launches"],
         "linear_resume": main_path["resume_steps"],
-        "probe": probe["launches"], "probe_resume": probe["resume_launches"]}
+        "probe": probe["launches"], "probe_resume": probe["resume_launches"],
+        "serve": serve["fused_readout_launches"]
+        + vtt_serve["fused_readout_launches"],
+        "export": export["fused_readout_launches"],
+        "cebra": cebra["fused_readout_launches"]}
+    if any(kernel["launches_by_path"][p] for p in ("serve", "export",
+                                                   "cebra")):
+        raise AssertionError(f"the fused readout ran on an inference or "
+                             f"embedding path: {kernel['launches_by_path']}")
     kernel["probe"]["launches"] = probe["launches"]
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {

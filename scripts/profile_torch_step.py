@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one train step goes on the card.
 
-    python3 scripts/profile_torch_step.py [--model linear|vtt|ssl|probe]
+    python3 scripts/profile_torch_step.py [--model linear|vtt|ssl|probe|cebra]
         [--steps 10] [--out DIR]
 
 Builds a trainer through ``video_spike_torch.cli.train`` at full width, as
@@ -22,7 +22,10 @@ Builds a trainer through ``video_spike_torch.cli.train`` at full width, as
   optimizer, batch 8; the kernel updates the (1,204,224, 256)
   ``encoder_head``) on the 40-trial session, features staged; then, apart,
   the frozen encode of one batch of 8 raw trials (``encode`` in the
-  output, per trial).
+  output, per trial);
+- ``cebra``: one iteration of the CEBRA fit (``models/cebra.py``: batch 512,
+  32 units, 5 dimensions) on the 8,640 whisker frames of 64x96 that
+  ``cli.use_cebra`` reads from the RRR phase's 80-trial session.
 
 It warms up, then runs ``torch.profiler`` (CPU + CUDA activities) over
 ``--steps`` staged steps. Prints one JSON line: wall ms/step (with the
@@ -92,7 +95,8 @@ def summarize(prof, wall: float, units: int, unit: str,
 
 def main() -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--model", choices=("linear", "vtt", "ssl", "probe"),
+    p.add_argument("--model",
+                   choices=("linear", "vtt", "ssl", "probe", "cebra"),
                    default="linear")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--out", type=str,
@@ -129,6 +133,30 @@ def main() -> int:
                                "--n_neurons", str(chip_smoke.N_NEURONS)])
             trainer = chip_smoke.probe_staged_trainer(work, "logs")
             run = trainer.train_epoch
+        elif args.model == "cebra":
+            from video_spike_torch.cli import use_cebra
+            from video_spike_torch.models.cebra import CEBRA, RECEPTIVE_FIELD
+
+            make_fixture.main(["--out", str(work / "rrr" / "fixture"),
+                               "--eid", chip_smoke.RRR_EID,
+                               "--n_trials", str(chip_smoke.RRR_TRIALS),
+                               "--n_neurons", str(chip_smoke.RRR_NEURONS),
+                               "--height", "32", "--width", "32"])
+            frames = use_cebra.build(chip_smoke._cebra_argv(work))["X"]
+            X = torch.from_numpy(frames.reshape(
+                -1, chip_smoke.CEBRA_PIXELS).astype(np.float32)).cuda()
+            trainer = CEBRA(output_dimension=chip_smoke.CEBRA_OUT_DIM)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = trainer.init_params(X.shape[1], gen)
+            fit = {"params": params, "opt": trainer.tx.init(params)}
+            max_start = X.shape[0] - RECEPTIVE_FIELD - trainer.time_offset - 1
+            trainer.global_step = 0
+
+            def run():
+                fit["params"], fit["opt"], _ = trainer.step(
+                    fit["params"], fit["opt"], X,
+                    *trainer.sample(gen, max_start))
+                trainer.global_step += 1
         elif args.model == "vtt":
             chip_smoke.vtt_fixture(work / "vtt_data")
             trainer = train_cli.build_trainer(get_args(

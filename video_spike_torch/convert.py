@@ -27,7 +27,9 @@ Optimizer states:
 
 The VideoMAE probe and pretraining trees convert like the others
 (``video_mae.patch_embed.Conv_0.kernel`` (kT, kH, kW, C, D),
-``encoder_head.kernel``, ``mask_token``, ...).
+``encoder_head.kernel``, ``mask_token``, ...), and so does the CEBRA
+``Offset10Encoder`` (``Conv_0.kernel`` (2, d, units) ... ``Conv_4.kernel``
+(3, units, out_dim), each with its ``bias``).
 
 Back-conversion returns plain nested tuples and dicts in the optax
 structure's flatten order, so

@@ -298,8 +298,8 @@ class AdamW:
 # make_optimizer (train/base.py:50-135, the names this slice ports)
 # ---------------------------------------------------------------------------
 
-_NOT_PORTED = ("is not ported yet; see ROADMAP.md Queue A item 4 "
-               "(optimizer names and trainer paths this slice leaves out)")
+_NOT_PORTED = ("is not ported yet; see ROADMAP.md Queue A item 17 "
+               "(optimizer variants)")
 
 
 def is_frozen(name: str, frozen_paths) -> bool:
