@@ -78,10 +78,18 @@ Phases, one JSON line each on stdout:
 19. cebra_card_vs_cpu: under PyTorch's default backend flags, the fitted
     encoder's ``transform`` on the card against the CPU, and
     ``get_pca_embedding`` (covariance and Gram branches) up to sign;
-20. a ``{"kernels": [...]}`` line (the fused readout runs on the Linear
-    and probe paths; the VTT, RRR, SSL, pretraining, serving, export and
-    CEBRA paths must launch it 0 times);
-21. last line: ``{"ok": true, "device": {...}}``.
+20. etl_main_path: ``cli.prepare_data.etl_session`` on a raw session of
+    80 trials and 668 neurons before the 2 Hz filter (128x192 frames, the
+    DLC points placed for a 64x96 whisker crop: 3 pyramid levels), the
+    Farneback flow of every trial's 119 frame pairs on the card in one
+    batch; every shard read back through ``split_dataset`` and
+    ``SessionDataset``; one trial's flow on the card against the CPU
+    (field and features, each within its bound), timed with CUDA events
+    and profiled (launches and device ms a trial);
+21. a ``{"kernels": [...]}`` line (the fused readout runs on the Linear
+    and probe paths; the VTT, RRR, SSL, pretraining, serving, export, CEBRA
+    and ETL paths must launch it 0 times);
+22. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure is an uncaught exception and a non-zero exit. Without a CUDA
 card, or without the rest of the repository beside it, it exits non-zero
@@ -222,6 +230,24 @@ CEBRA_PIXELS = 64 * 96
 CEBRA_F32_REL_BOUND = 1e-4
 PCA_REL_BOUND = 2e-4
 PCA_GRAM_TRIALS = 40         # 4,800 frames <= 6,144 pixels: the Gram branch
+# offline ETL (cli/prepare_data.py) on a raw session of the RRR and CEBRA
+# session's size: 80 trials, 668 neurons before the 2 Hz filter, 120 frames
+# a trial. The DLC nose tip and top pupil point sit 192 px apart, so the
+# whisker-pad ROI (w = d/2, h = d/3) is the 64x96 crop the SSL and CEBRA
+# phases train on, which runs the full 3-level pyramid. Cut: 80 trials of
+# a session's several hundred; 128x192 frames, not the camera's own size
+ETL_EID = "etlsess00"
+ETL_TRIALS = 80
+ETL_NEURONS = 668
+ETL_FRAME = (128, 192)
+ETL_NOSE, ETL_PUPIL = (20.5, 40.5), (212.5, 40.5)   # int(mean): 192 apart
+ETL_ROI = [96, 64, 68, 40]                            # w, h, x, y
+ETL_FLOW_REPS = 10           # timed flow calls a window
+# card vs CPU on one trial's flow, both f32 with TF32 off: the field's max
+# |d| / max |cpu| (noise-dominated pixels, where the 2x2 solve is
+# ill-conditioned, part most) and the features' max |d|
+ETL_FIELD_REL_BOUND = 1e-3
+ETL_OF_ABS_BOUND = 1e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -1798,6 +1824,129 @@ def phase_cebra_card_vs_cpu(work: Path, model) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the offline ETL, raw session -> trial shards
+# ---------------------------------------------------------------------------
+
+def phase_etl_main_path(work: Path) -> dict:
+    """``cli.prepare_data.etl_session`` (what ``--raw_npz`` runs, on the
+    session in memory) with its flow on the card: one npy shard per kept
+    trial, every shard read back through ``split_dataset`` and
+    ``SessionDataset``; then one trial's flow on the card against the CPU,
+    timed with CUDA events and profiled."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from scripts.profile_torch_step import summarize
+    from video_spike_torch.cli import prepare_data
+    from video_spike_torch.data.dataset import SessionDataset, split_dataset
+    from video_spike_torch.data.synthetic import raw_session
+    from video_spike_torch.data.tar_io import read_trial_tar
+    from video_spike_torch.ops import flow
+    from video_spike_torch.ops import fused_readout as fr
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    raw = raw_session(ETL_EID, ETL_TRIALS, ETL_NEURONS, seed=0,
+                      height=ETL_FRAME[0], width=ETL_FRAME[1],
+                      nose_xy=ETL_NOSE, pupil_xy=ETL_PUPIL)
+    raw_s = time.perf_counter() - t0
+    out_dir = work / "etl"
+    torch.cuda.reset_peak_memory_stats()
+    fr.apply_scaled_outer.launches = 0
+    t0 = time.perf_counter()
+    files = prepare_data.etl_session(raw, out_dir, ETL_EID,
+                                     store_video_as="npy", device="cuda")
+    etl_s = time.perf_counter() - t0
+    launches = fr.apply_scaled_outer.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del raw
+
+    t0 = time.perf_counter()
+    split = split_dataset(out_dir, eid=ETL_EID, seed=0)
+    shards = split["train"] + split["val"] + split["test"]
+    n_read, shapes, finite = 0, set(), True
+    for batch in SessionDataset(shards, batch_size=16, cache=False):
+        n_read += len(batch["eid"])
+        arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+        shapes.add(json.dumps({k: list(v.shape[1:])
+                               for k, v in arrays.items()}, sort_keys=True))
+        finite &= all(np.isfinite(v).all() for v in arrays.values()
+                      if v.dtype == np.float32)
+    read_s = time.perf_counter() - t0
+    sample = read_trial_tar(files[0])
+    n_kept = int(sample["meta"]["n_neurons"])
+    h, w = ETL_ROI[1], ETL_ROI[0]
+    want = {"ap": [100, n_kept], "block": [1], "choice": [1],
+            "timestamp": [T_FRAMES], "video": [T_FRAMES, 1, *ETL_FRAME],
+            "wheel-speed": [T_FRAMES], "whisker-motion-energy": [T_FRAMES],
+            "whisker-of": [T_FRAMES, 3], "whisker-of-2d": [T_FRAMES, 2],
+            "whisker-of-video": [T_FRAMES - 1, h, w, 2],
+            "whisker-video": [T_FRAMES, 1, h, w]}
+
+    # one trial's flow: the card against the CPU, then timed and profiled
+    video = sample["whisker-video"][:, 0].astype(np.float32)
+    card = flow.get_optic_flow(video, device="cuda")
+    t0 = time.perf_counter()
+    cpu = flow.get_optic_flow(video, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    field_rel = float(np.abs(card["of-video"] - cpu["of-video"]).max()
+                      / np.abs(cpu["of-video"]).max())
+    of_err = {k: float(np.abs(card[k] - cpu[k]).max())
+              for k in ("of", "of-2d", "me")}
+    frames = torch.from_numpy(video).cuda()
+    windows = [cuda_ms(lambda: flow.farneback_flow(frames[:-1], frames[1:]),
+                       ETL_FLOW_REPS) for _ in range(REPS)]
+    t0 = time.perf_counter()
+    for _ in range(ETL_FLOW_REPS):
+        flow.get_optic_flow(video, device="cuda")
+    features_ms = (time.perf_counter() - t0) / ETL_FLOW_REPS * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        flow.farneback_flow(frames[:-1], frames[1:])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    profiled = summarize(prof, wall, 1, "trial")
+    del frames
+    _free_card()
+
+    out = {"trials": ETL_TRIALS, "neurons_before_filter": ETL_NEURONS,
+           "frame": list(ETL_FRAME), "whisker_roi": sample["meta"]
+           ["whisker_roi"], "trials_written": len(files),
+           "trials_read": n_read, "neurons_kept": n_kept,
+           "shapes": [json.loads(s) for s in shapes], "finite": finite,
+           "raw_session_seconds": raw_s, "etl_seconds": etl_s,
+           "etl_ms_per_trial": etl_s / max(len(files), 1) * 1e3,
+           "read_seconds": read_s, "peak_mem_gb": peak,
+           "flow_ms_per_trial": statistics.median(windows),
+           "flow_ms_windows": windows,
+           "features_ms_per_trial": features_ms,
+           "cpu_features_seconds": cpu_s, **profiled,
+           "card_vs_cpu": {"field_max_rel_err": field_rel,
+                           "field_bound": ETL_FIELD_REL_BOUND,
+                           "features_max_abs_err": of_err,
+                           "features_bound": ETL_OF_ABS_BOUND},
+           "fused_readout_launches": launches,
+           "cuts": "80 trials of a session's several hundred; 128x192 "
+                   "frames, not the camera's resolution; random session "
+                   "from seed 0",
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit("etl_main_path", **out)
+    if (not files or n_read != len(files)
+            or shapes != {json.dumps(want, sort_keys=True)}
+            or not finite or out["whisker_roi"] != ETL_ROI or n_kept < 1
+            or launches):
+        raise AssertionError(f"ETL path: {out}")
+    if field_rel > ETL_FIELD_REL_BOUND or max(
+            of_err["of"], of_err["of-2d"]) > ETL_OF_ABS_BOUND:
+        raise AssertionError(f"ETL flow card vs CPU beyond its bound: "
+                             f"{out['card_vs_cpu']}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "video_spike_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1835,6 +1984,7 @@ def main() -> int:
         cebra, cebra_model = phase_cebra_main_path(work)
         phase_cebra_card_vs_cpu(work, cebra_model)
         del cebra_model
+        etl = phase_etl_main_path(work)
     # launches on the paths that run the kernel (every other path: 0)
     kernel["launches"] = main_path["launches"] + probe["launches"]
     kernel["launches_by_path"] = {
@@ -1844,11 +1994,13 @@ def main() -> int:
         "serve": serve["fused_readout_launches"]
         + vtt_serve["fused_readout_launches"],
         "export": export["fused_readout_launches"],
-        "cebra": cebra["fused_readout_launches"]}
+        "cebra": cebra["fused_readout_launches"],
+        "etl": etl["fused_readout_launches"]}
     if any(kernel["launches_by_path"][p] for p in ("serve", "export",
-                                                   "cebra")):
-        raise AssertionError(f"the fused readout ran on an inference or "
-                             f"embedding path: {kernel['launches_by_path']}")
+                                                   "cebra", "etl")):
+        raise AssertionError(f"the fused readout ran on an inference, "
+                             f"embedding or ETL path: "
+                             f"{kernel['launches_by_path']}")
     kernel["probe"]["launches"] = probe["launches"]
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {

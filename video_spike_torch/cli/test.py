@@ -14,8 +14,9 @@ frame steps subsampled to the 100 spike bins with the global numpy stream
 that ``set_seed`` seeds) and prints per-eid and mean bps. Returns the
 per-eid bps list.
 
-``--save_plot`` (embedding figures and GIFs) is not ported and raises
-(ROADMAP.md Queue A item 10). As in ``cli/pretrain.py``, ``main(argv,
+``--plot_dir`` (default ``.``) is accepted as the JAX CLI accepts it;
+``--save_plot`` (embedding figures and GIFs written there) is not ported
+and raises (ROADMAP.md Queue A item 16). As in ``cli/pretrain.py``, ``main(argv,
 data=...)`` takes the split dict of ``cli/create_eid_data.split_dict`` in
 place of the h5.
 """
@@ -45,13 +46,16 @@ def main(argv=None, data=None):
     parser = argparse.ArgumentParser(add_help=False)
     parser.add_argument("--h5_path", type=str,
                         default="data/data_rrr_whisker-video.h5")
+    # where --save_plot would write (the reference writes into the CWD,
+    # src/test.py:187-236)
+    parser.add_argument("--plot_dir", type=str, default=".")
     extra, rest = parser.parse_known_args(argv)
     args = get_args(rest)
     if args.save_plot:
         raise NotImplementedError(
-            "--save_plot (embedding figures, viz/embeddings.py) is not "
-            "ported yet; see ROADMAP.md Queue A item 10 (what the SSL slice "
-            "leaves out)")
+            "--save_plot (embedding figures and GIFs under --plot_dir) is "
+            "not ported yet; see ROADMAP.md Queue A item 16 (tracking, "
+            "results and figures)")
     device = resolve_device(args.device)
     config = config_from_kwargs({"model": f"include:{args.model_config}"})
     config = update_config(args.train_config, config)

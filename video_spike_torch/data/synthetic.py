@@ -51,11 +51,30 @@ def _render_frames(latent: np.ndarray, h: int, w: int,
 
 def make_raw_session(out_path: str | Path, eid: str = "rawsess000",
                      n_trials: int = 10, n_neurons: int = 16,
-                     seed: int = 0, height: int = 64, width: int = 64) -> str:
+                     seed: int = 0, height: int = 64, width: int = 64,
+                     **placement) -> str:
     """Write a synthetic RAW session (pre-ETL) npz: session-wide spike
     times/clusters, behavior time series at native rates, DLC traces, trial
     table, and camera video — the local-mode input to ``cli.prepare_data``.
+    At the defaults it equals ``video_spike_tpu``'s; ``placement`` takes
+    :func:`raw_session`'s DLC anchors.
     """
+    raw = raw_session(eid, n_trials, n_neurons, seed, height, width,
+                      **placement)
+    out_path = Path(out_path)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(out_path, **raw)
+    return str(out_path)
+
+
+def raw_session(eid: str = "rawsess000", n_trials: int = 10,
+                n_neurons: int = 16, seed: int = 0, height: int = 64,
+                width: int = 64, nose_xy=(20, 40), pupil_xy=(44, 22)
+                ) -> dict:
+    """The arrays of :func:`make_raw_session`, in memory. The DLC nose tip
+    and top pupil point sit at ``nose_xy`` and ``pupil_xy`` (x, y) plus
+    noise: the whisker-pad ROI is w = d/2 by h = d/3 at their distance d
+    (``data/ibl.whisker_pad_roi``)."""
     rng = np.random.default_rng(seed)
     trial_len, gap = 2.0, 1.0
     session_len = n_trials * (trial_len + gap) + gap
@@ -73,11 +92,12 @@ def make_raw_session(out_path: str | Path, eid: str = "rawsess000",
     spike_times, spike_clusters = [], []
     for n in range(n_neurons):
         counts = rng.poisson(rates[:, n] / 60.0)
-        for t_idx in np.where(counts > 0)[0]:
-            k = counts[t_idx]
-            spike_times.append(cam_times[t_idx]
-                               + rng.uniform(0, 1 / 60.0, size=k))
-            spike_clusters.append(np.full(k, n))
+        # one uniform draw per spike, in frame order: the same stream as one
+        # draw of `k` per frame
+        frame = np.repeat(np.arange(n_cam), counts)
+        spike_times.append(cam_times[frame]
+                           + rng.uniform(0, 1 / 60.0, size=len(frame)))
+        spike_clusters.append(np.full(len(frame), n))
     spike_times = np.concatenate(spike_times)
     spike_clusters = np.concatenate(spike_clusters).astype(np.int64)
     order = np.argsort(spike_times)
@@ -90,21 +110,18 @@ def make_raw_session(out_path: str | Path, eid: str = "rawsess000",
     # DLC traces (static-ish nose/pupil with high likelihood)
     n_frames = n_cam
     dlc = {
-        "nose_tip_x": 20 + rng.normal(0, 0.5, n_frames),
-        "nose_tip_y": 40 + rng.normal(0, 0.5, n_frames),
+        "nose_tip_x": nose_xy[0] + rng.normal(0, 0.5, n_frames),
+        "nose_tip_y": nose_xy[1] + rng.normal(0, 0.5, n_frames),
         "nose_tip_likelihood": np.full(n_frames, 0.99),
-        "pupil_top_r_x": 44 + rng.normal(0, 0.5, n_frames),
-        "pupil_top_r_y": 22 + rng.normal(0, 0.5, n_frames),
+        "pupil_top_r_x": pupil_xy[0] + rng.normal(0, 0.5, n_frames),
+        "pupil_top_r_y": pupil_xy[1] + rng.normal(0, 0.5, n_frames),
         "pupil_top_r_likelihood": np.full(n_frames, 0.99),
     }
 
     video = _render_frames(latent, height, width, rng)
 
-    out_path = Path(out_path)
-    out_path.parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(
-        out_path,
-        eid=eid,
+    return dict(
+        eid=np.asarray(eid),
         spike_times=spike_times,
         spike_clusters=spike_clusters,
         trial_starts=trial_starts,
@@ -118,7 +135,6 @@ def make_raw_session(out_path: str | Path, eid: str = "rawsess000",
         video=video,
         **{f"dlc_{k}": v for k, v in dlc.items()},
     )
-    return str(out_path)
 
 
 def make_synthetic_session(out_dir: str | Path, eid: str = "testeid000",

@@ -1,11 +1,22 @@
-"""Embedding figures (counterpart of ``video_spike_tpu/viz/embeddings.py``,
-reference ``src/utils/plot_utils.py:10-66``): ``plot_embeddings`` only, the
-figure ``models/cebra.get_cebra_embedding`` writes when given a
-``save_path``."""
+"""Embedding figures and GIF export (counterpart of
+``video_spike_tpu/viz/embeddings.py``, reference
+``src/utils/plot_utils.py``): ``plot_embeddings`` (``:10-66``), the figure
+``models/cebra.get_cebra_embedding`` writes when given a ``save_path``;
+``float32_to_uint8`` (``:237-271``) and ``save_numpy_video_to_gif``
+(``:142-235``), which ``cli/cal_of.py`` writes its GIF with."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def float32_to_uint8(frames: np.ndarray) -> np.ndarray:
+    """Scale float frames to the full uint8 range per array."""
+    frames = np.asarray(frames, dtype=np.float64)
+    lo, hi = np.nanmin(frames), np.nanmax(frames)
+    if hi <= lo:
+        return np.zeros_like(frames, dtype=np.uint8)
+    return ((frames - lo) / (hi - lo) * 255).astype(np.uint8)
 
 
 def plot_embeddings(embeddings: np.ndarray, timestamps=None, title=""):
@@ -27,3 +38,19 @@ def plot_embeddings(embeddings: np.ndarray, timestamps=None, title=""):
     axes[-1].set_xlabel("time")
     fig.suptitle(title or "Embeddings")
     return fig
+
+
+def save_numpy_video_to_gif(video: np.ndarray, save_path: str,
+                            fps: int = 20) -> str:
+    """(T, H, W) or (T, C, H, W) or (T, H, W, C) frames -> GIF."""
+    import imageio.v2 as imageio
+
+    video = np.asarray(video)
+    if video.ndim == 4 and video.shape[1] in (1, 3):  # (T, C, H, W)
+        video = np.moveaxis(video, 1, -1)
+    if video.ndim == 4 and video.shape[-1] == 1:
+        video = video[..., 0]
+    if video.dtype != np.uint8:
+        video = float32_to_uint8(video)
+    imageio.mimsave(save_path, list(video), duration=1000.0 / fps)
+    return save_path
