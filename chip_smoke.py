@@ -18,6 +18,19 @@ Phases, one JSON line each on stdout:
    the production configuration (bf16 SR store, lean adafactor, fused
    readout), then resumes for one more epoch; the kernel's launch count
    must equal the train steps; then ms/step over staged steps;
+3b. linear_lean_path: the same model under ``adafactor_lean`` (bf16 SR
+    store, fused readout) streaming with the ``profiling`` hook on, 2
+    epochs then ``--resume`` to 3: a launch a step, ``metrics.jsonl`` with
+    a finite record an epoch, a profiler trace (each run traces once),
+    the checkpoint's optimizer counts; then ms/step of the staged lean
+    step;
+3c. linear_accum_path: ``adamw_sr_bf16`` with gradient accumulation 2 for
+    2 epochs: the fused readout off (and logged so), 0 launches, the
+    checkpoint's MultiSteps counters;
+3d. optim_card_vs_cpu: every new optimizer transform on the Linear model's
+    non-kernel leaves (the 11,161,600-element decoder head among them), 3
+    updates on the card against the CPU within stated bounds, and one
+    update timed beside its HBM bound;
 4. vtt_main_path: ``cli.train --eid <5 sessions>`` trains the VTT flagship
    (``configs/{model,train}/vtt_video.yaml``, full width, 10,264,188
    parameters) on five synthetic 128x128 sessions of 668, 600, 500, 400
@@ -86,9 +99,10 @@ Phases, one JSON line each on stdout:
     ``SessionDataset``; one trial's flow on the card against the CPU
     (field and features, each within its bound), timed with CUDA events
     and profiled (launches and device ms a trial);
-21. a ``{"kernels": [...]}`` line (the fused readout runs on the Linear
-    and probe paths; the VTT, RRR, SSL, pretraining, serving, export, CEBRA
-    and ETL paths must launch it 0 times);
+21. a ``{"kernels": [...]}`` line (the fused readout runs on the Linear,
+    lean Linear and probe paths; the accumulation, VTT, RRR, SSL,
+    pretraining, serving, export, CEBRA and ETL paths must launch it 0
+    times);
 22. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure is an uncaught exception and a non-zero exit. Without a CUDA
@@ -549,10 +563,10 @@ def phase_main_path(work: Path) -> dict:
     return out
 
 
-def phase_step_time(work: Path) -> dict:
-    """ms/step of the staged fused train step, CUDA events over REPS
-    windows of 20 steps (the median and every window), through the same
-    trainer the CLI builds."""
+def staged_ms_per_step(work: Path, train_yaml: Path, log_dir: str) -> dict:
+    """ms/step of the staged train step on the Linear fixture, CUDA events
+    over REPS windows of 20 steps (the median and every window), through
+    the same trainer the CLI builds."""
     import torch
 
     from video_spike_torch.cli import train as train_cli
@@ -560,8 +574,8 @@ def phase_step_time(work: Path) -> dict:
 
     args = get_args(
         ["--model_config", str(ROOT / "configs/model/linear_video.yaml"),
-         "--train_config", str(_train_yaml(work)), "--eid", "smokeeid0",
-         "--data_dir", str(work / "data"), "--log_dir", str(work / "timing"),
+         "--train_config", str(train_yaml), "--eid", "smokeeid0",
+         "--data_dir", str(work / "data"), "--log_dir", str(work / log_dir),
          "--batch_size", str(BATCH), "--device", "cuda"])
     trainer = train_cli.build_trainer(args)
     torch.cuda.reset_peak_memory_stats()
@@ -581,11 +595,417 @@ def phase_step_time(work: Path) -> dict:
         steps = trainer.global_step - step0
         windows.append(start.elapsed_time(end) / steps)
     ms = statistics.median(windows)
-    out = {"ms_per_step": ms, "ms_per_step_windows": windows,
-           "steps_per_window": steps, "batch": BATCH,
-           "frames_per_s": BATCH * T_FRAMES / (ms / 1e3),
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return {"ms_per_step": ms, "ms_per_step_windows": windows,
+            "steps_per_window": steps, "batch": BATCH,
+            "frames_per_s": BATCH * T_FRAMES / (ms / 1e3),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_step_time(work: Path) -> dict:
+    """The production configuration's fused step (optax adafactor without
+    parameter scale or clipping on the rest of the tree)."""
+    out = staged_ms_per_step(work, _train_yaml(work), "timing")
     emit("step_time", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 3c-3e: the optimizer variants on the full-width Linear model
+# ---------------------------------------------------------------------------
+
+LEAN_OPTIMIZER = {"name": "adafactor_lean", "param_dtype": "bfloat16_sr",
+                  "fused_readout": True}
+ACCUM_OPTIMIZER = {"name": "adamw", "param_dtype": "bfloat16_sr",
+                   "gradient_accumulation_steps": 2, "fused_readout": True}
+PROFILE_STEPS = 3
+
+
+def _variant_yaml(work: Path, name: str, optimizer: dict,
+                  training: dict = None, extra: dict = None) -> Path:
+    """configs/train/linear_video.yaml with ``optimizer`` (replacing the
+    yaml's optimizer keys it names) and ``training`` overrides."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "configs/train/linear_video.yaml")
+                         .read_text())
+    cfg["optimizer"].update(optimizer)
+    cfg["training"].update(training or {})
+    cfg.update(extra or {})
+    path = work / f"train_linear_{name}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def _linear_args(work: Path, train_yaml: Path, log_dir: str) -> list:
+    return ["--model_config", str(ROOT / "configs/model/linear_video.yaml"),
+            "--train_config", str(train_yaml), "--eid", "smokeeid0",
+            "--data_dir", str(work / "data"), "--log_dir", str(work / log_dir),
+            "--batch_size", str(BATCH), "--device", "cuda"]
+
+
+def _metrics_records(log_dir: Path) -> list:
+    with open(log_dir / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def _finite_records(records: list, keys) -> bool:
+    return all(math.isfinite(r[k]) for r in records for k in keys)
+
+
+def phase_linear_lean_path(work: Path) -> dict:
+    """``cli.train`` on the full-width Linear with ``adafactor_lean`` + the
+    bf16 SR store + ``fused_readout``, streaming (``device_cache: false``)
+    with the profiler hook on: 2 epochs, then ``--resume`` to 3. The
+    kernel launches once a train step; ``metrics.jsonl`` gets one record
+    an epoch; a trace lands in ``trace/``; then ms/step of the staged lean
+    step."""
+    import torch
+
+    from video_spike_torch.cli import train as train_cli
+    from video_spike_torch.ops import fused_readout as fr
+
+    t_phase = time.perf_counter()
+    trace_dir = work / "trace"
+    train_yaml = _variant_yaml(
+        work, "lean", LEAN_OPTIMIZER, {"device_cache": False},
+        {"profiling": {"enable": True, "dir": str(trace_dir),
+                       "steps": PROFILE_STEPS}})
+    args = _linear_args(work, train_yaml, "lean_logs")
+    fr.apply_scaled_outer.launches = 0
+    t0 = time.perf_counter()
+    res = train_cli.main(args + ["--num_epochs", "2"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = fr.apply_scaled_outer.launches
+    steps = res["global_step"]
+    log_dir = Path(res["log_dir"])
+    last = torch.load(log_dir / "model_last.pt", weights_only=True)
+    fr.apply_scaled_outer.launches = 0
+    res2 = train_cli.main(args + ["--num_epochs", "3", "--resume"])
+    torch.cuda.synchronize()
+    resume_launches = fr.apply_scaled_outer.launches
+    resume_steps = res2["global_step"] - steps
+    last2 = torch.load(log_dir / "model_last.pt", weights_only=True)
+    records = _metrics_records(log_dir)
+    traces = sorted(p.name for p in trace_dir.glob("*.json"))
+    out = {"optimizer": LEAN_OPTIMIZER, "train_steps": steps,
+           "launches": launches, "fused_readout": res["fused_readout"],
+           "resume_steps": resume_steps, "resume_launches": resume_launches,
+           "rest_count": last["opt_state"]["rest"]["count"],
+           "fused_count": last["opt_state"]["fused"]["count"],
+           "resume_rest_count": last2["opt_state"]["rest"]["count"],
+           "metrics_records": records, "traces": traces,
+           "trace_bytes": sum((trace_dir / t).stat().st_size
+                              for t in traces),
+           "test": res["test_res"], "run_seconds": run_s,
+           "ms_per_step_run": run_s / steps * 1e3,
+           "train_losses": res["train_losses"] + res2["train_losses"]}
+    if not (res["fused_readout"] and res2["fused_readout"]):
+        raise AssertionError("the fused readout step was not engaged")
+    if steps == 0 or launches != steps or resume_steps <= 0 \
+            or resume_launches != resume_steps:
+        raise AssertionError(f"lean path: launches {launches} for {steps} "
+                             f"steps, {resume_launches} for {resume_steps} "
+                             f"resumed steps")
+    if not (res["trace_paths"] and traces):
+        raise AssertionError(f"no profiler trace under {trace_dir}")
+    if (out["rest_count"] != steps or out["fused_count"] != steps
+            or out["resume_rest_count"] != steps + resume_steps):
+        raise AssertionError(f"optimizer counts: {out}")
+    if len(records) != 3 or [r["epoch"] for r in records] != [0, 1, 2] \
+            or not _finite_records(records, ("train_loss", "lr", "eval_bps",
+                                             "eval_rsquared")):
+        raise AssertionError(f"metrics.jsonl: {records}")
+    if not (math.isfinite(res["best_eval_bps"])
+            and math.isfinite(res["test_res"]["test_bps"])):
+        raise AssertionError(f"lean path results not finite: {res}")
+    out["staged"] = staged_ms_per_step(
+        work, _variant_yaml(work, "lean_staged", LEAN_OPTIMIZER),
+        "lean_timing")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit("linear_lean_path", **out)
+    return out
+
+
+class _LogLines:
+    """The port's log lines while the block runs."""
+
+    def __enter__(self):
+        import logging
+
+        self.lines = []
+        handler = logging.Handler()
+        handler.emit = lambda rec: self.lines.append(rec.getMessage())
+        self._handler = handler
+        logging.getLogger("video_spike_torch").addHandler(handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        logging.getLogger("video_spike_torch").removeHandler(self._handler)
+
+
+def phase_linear_accum_path(work: Path) -> dict:
+    """``cli.train`` on the full-width Linear with ``adamw_sr_bf16`` and
+    ``gradient_accumulation_steps: 2`` for 2 epochs: the fused readout is
+    turned off (the log says so) and the kernel never launches; the
+    checkpoint's MultiSteps counters agree with the micro-steps taken."""
+    import torch
+
+    from video_spike_torch.cli import train as train_cli
+    from video_spike_torch.ops import fused_readout as fr
+
+    t0 = time.perf_counter()
+    train_yaml = _variant_yaml(work, "accum", ACCUM_OPTIMIZER)
+    fr.apply_scaled_outer.launches = 0
+    with _LogLines() as log:
+        res = train_cli.main(_linear_args(work, train_yaml, "accum_logs")
+                             + ["--num_epochs", "2"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = fr.apply_scaled_outer.launches
+    steps = res["global_step"]
+    log_dir = Path(res["log_dir"])
+    state = torch.load(log_dir / "model_last.pt",
+                       weights_only=True)["opt_state"]["tx"]
+    records = _metrics_records(log_dir)
+    off = [l for l in log.lines if "fused_readout disabled" in l]
+    out = {"optimizer": ACCUM_OPTIMIZER, "micro_steps": steps,
+           "launches": launches, "fused_readout": res["fused_readout"],
+           "log": off, "mini_step": state["mini_step"],
+           "gradient_step": state["gradient_step"],
+           "inner_count": state["inner"]["count"],
+           "metrics_records": records, "test": res["test_res"],
+           "run_seconds": run_s, "ms_per_micro_step_run": run_s / steps * 1e3}
+    k = ACCUM_OPTIMIZER["gradient_accumulation_steps"]
+    if res["fused_readout"] or launches or not any(
+            "gradient accumulation" in l for l in off):
+        raise AssertionError(f"accum path: fused {res['fused_readout']}, "
+                             f"launches {launches}, log {off}")
+    if (steps == 0 or state["gradient_step"] != steps // k
+            or state["mini_step"] != steps % k
+            or state["inner"]["count"] != steps // k):
+        raise AssertionError(f"MultiSteps counters vs {steps} steps: {out}")
+    if len(records) != 2 or not _finite_records(
+            records, ("train_loss", "lr", "eval_loss", "eval_bps",
+                      "eval_rsquared")) \
+            or not all(math.isfinite(v) for v in res["test_res"].values()):
+        raise AssertionError(f"accum path metrics: {records}, "
+                             f"{res['test_res']}")
+    emit("linear_accum_path", **out)
+    return out
+
+
+# card vs CPU on the optimizer variants, 3 updates of each: f32 values
+# (states, f32 updates) within rtol 1e-5 of the CPU's (reductions over
+# 43,600-element rows in another order, CUDA's rsqrt within 2 ulp), with an
+# atol of 1e-6 of the leaf's largest value where a weight-decay add cancels;
+# bf16 values (the bf16 store, bf16 states and updates) within 1 bf16 ulp
+# of themselves (an f32 difference in the last bits rounds, or an SR
+# decision flips, to the neighbouring bf16) plus 1 bf16 ulp of the leaf's
+# largest value where such an add cancels
+OPT_F32_RTOL = 1e-5
+OPT_F32_ATOL_REL = 1e-6
+OPT_UPDATES = 3
+OPT_TIMED_UPDATES = 20
+
+
+def linear_rest_tree(seed: int) -> dict:
+    """The full-width Linear model's leaves besides the first kernel, by
+    the port's names: the (256, 43,600) decoder head (11,161,600 elements,
+    bf16 as the SR store keeps it), the smaller kernels and the biases
+    (f32), from a numpy seed."""
+    import numpy as np
+    import torch
+
+    shapes = {"encoder.Dense_0.bias": (256,),
+              "encoder.Dense_1.kernel": (256, 128),
+              "encoder.Dense_1.bias": (128,),
+              "encoder.Dense_2.kernel": (128, 64),
+              "encoder.Dense_2.bias": (64,),
+              "decoder.Dense_0.kernel": (64, 128),
+              "decoder.Dense_0.bias": (128,),
+              "decoder.Dense_1.kernel": (128, 256),
+              "decoder.Dense_1.bias": (256,),
+              "decoder.Dense_2.kernel": (256, 100 * N_NEURONS),
+              "decoder.Dense_2.bias": (100 * N_NEURONS,)}
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, shape in shapes.items():
+        t = torch.from_numpy(rng.normal(0, 0.02, shape).astype(np.float32))
+        out[k] = t.to(torch.bfloat16) if t.numel() >= 1 << 16 else t
+    return out
+
+
+def _optim_cases():
+    import torch
+
+    from video_spike_torch.ops import optim as op
+
+    sched = op.cosine_onecycle_schedule(1000, 5e-5, 0.15, 10, 1e4)
+    return {
+        "adafactor_lean": (lambda: op.AdafactorLean(sched), "bf16", False),
+        "adamw_lowmem": (lambda: op.AdamWLowmem(sched, weight_decay=0.01),
+                         "f32", True),
+        "adamw_sr_bf16+apply_updates_sr": (
+            lambda: op.AdamWLowmem(sched, weight_decay=0.01), "bf16", True),
+        "adamw_mu_bf16": (lambda: op.AdamW(sched, weight_decay=0.01,
+                                           mu_dtype=torch.bfloat16),
+                          "f32", True),
+        "adafactor_all_options": (lambda: op.Adafactor(
+            sched, multiply_by_parameter_scale=True, clipping_threshold=1.0,
+            momentum=0.9, weight_decay_rate=1e-3), "bf16", True),
+        "multisteps_k2_adafactor_lean": (
+            lambda: op.MultiSteps(op.AdafactorLean(sched), 2), "bf16",
+            False),
+    }
+
+
+def _tensors(tree) -> list:
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def _bf16_ulp(x):
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(
+        x.abs().float().clamp_min(1e-38))) - 7)
+
+
+def _compare_tree(got, ref, what: str, worst: dict) -> None:
+    """Card values against the CPU's by the bounds above."""
+    import torch
+
+    if isinstance(ref, dict):
+        for k in ref:
+            _compare_tree(got[k], ref[k], f"{what}.{k}", worst)
+        return
+    if not isinstance(ref, torch.Tensor):
+        if got != ref:
+            raise AssertionError(f"{what}: {got} != {ref}")
+        return
+    g = got.cpu()
+    if g.dtype != ref.dtype or g.shape != ref.shape:
+        raise AssertionError(f"{what}: {g.dtype}{tuple(g.shape)} vs "
+                             f"{ref.dtype}{tuple(ref.shape)}")
+    if ref.numel() == 0:
+        return
+    gf, rf = g.float(), ref.float()
+    scale = float(rf.abs().max())
+    diff = (gf - rf).abs()
+    if ref.dtype == torch.bfloat16:
+        bound = (_bf16_ulp(torch.maximum(gf.abs(), rf.abs()))
+                 + _bf16_ulp(torch.tensor(scale)))
+        key = "bf16_max_of_bound"
+    else:
+        bound = OPT_F32_RTOL * rf.abs() + OPT_F32_ATOL_REL * scale
+        key = "f32_max_of_bound"
+    worst[key] = max(worst.get(key, 0.0),
+                     float((diff / bound.clamp_min(1e-38)).max()))
+    worst["frac_bitwise"] = min(worst.get("frac_bitwise", 1.0),
+                                float((gf == rf).float().mean()))
+    worst["max_abs_err"] = max(worst.get("max_abs_err", 0.0),
+                               float(diff.max()))
+    if bool((diff > bound).any()):
+        raise AssertionError(f"{what}: card vs CPU beyond its bound "
+                             f"(max |d| {float(diff.max())}, scale {scale})")
+
+
+def phase_optim_card_vs_cpu() -> dict:
+    """Each new optimizer transform on the Linear model's real non-kernel
+    leaves, 3 updates on the card and on the CPU from the same numpy
+    parameters and gradients, compared by the bounds above; then one
+    update timed on the card (CUDA events, median of REPS windows of 20)
+    beside its HBM bound: the bytes it must read (gradients, state, the
+    parameters where it reads them) and write (state, updates) over
+    3.35 TB/s."""
+    import numpy as np
+    import torch
+
+    from video_spike_torch.ops import optim as op
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    base = linear_rest_tree(11)
+    rng = np.random.default_rng(12)
+    grads = [{k: torch.from_numpy(rng.normal(0, 1e-3, tuple(v.shape)).astype(
+        np.float32)).to(v.dtype) for k, v in base.items()}
+        for _ in range(OPT_UPDATES)]
+    out = {}
+    for name, (make, store, reads_params) in _optim_cases().items():
+        params0 = (base if store == "bf16"
+                   else {k: v.float() for k, v in base.items()})
+        gs = [{k: g.to(params0[k].dtype) for k, g in grad.items()}
+              for grad in grads]
+        sr = name.endswith("apply_updates_sr")
+        apply = op.apply_updates_sr if sr else op.apply_updates
+        results = {}
+        for where in ("cpu", "cuda"):
+            tx = make()
+            params = {k: v.to(where) for k, v in params0.items()}
+            state = tx.init(params)
+            for i in range(OPT_UPDATES):
+                upd, state = tx.update(
+                    {k: g.to(where) for k, g in gs[i].items()}, state,
+                    params)
+                params = apply(params, upd, i)
+            results[where] = (params, state, upd)
+        worst = {}
+        for part, idx in (("params", 0), ("state", 1), ("updates", 2)):
+            _compare_tree(results["cuda"][idx], results["cpu"][idx],
+                          f"{name}.{part}", worst)
+
+        # one update timed on the card (the SR case with its apply)
+        tx = make()
+        params = {k: v.to(dev) for k, v in params0.items()}
+        state = tx.init(params)
+        g_dev = {k: g.to(dev) for k, g in gs[0].items()}
+        holder = {"state": state}
+
+        def one():
+            upd, holder["state"] = tx.update(g_dev, holder["state"], params)
+            if sr:
+                op.apply_updates_sr(params, upd, 1)
+
+        windows = [cuda_ms(one, OPT_TIMED_UPDATES, 2) for _ in range(REPS)]
+        upd, new_state = tx.update(g_dev, state, params)
+        state_bytes = sum(t.nbytes for t in _tensors(state))
+        new_state_bytes = sum(t.nbytes for t in _tensors(new_state))
+        g_bytes = sum(t.nbytes for t in g_dev.values())
+        p_bytes = sum(t.nbytes for t in params.values())
+        u_bytes = sum(t.nbytes for t in upd.values())
+        if isinstance(tx, op.MultiSteps):
+            inner = sum(t.nbytes for t in _tensors(state["inner"]))
+            acc = sum(t.nbytes for t in _tensors(state["acc_grads"]))
+            # a micro-step reads g and acc, writes acc and (zero) updates;
+            # the inner update runs on every k-th: its state in and out
+            nbytes = g_bytes + 2 * acc + u_bytes + 2 * inner / tx.every_k
+        elif sr:
+            # the SR apply writes the params in place of the updates
+            nbytes = g_bytes + state_bytes + new_state_bytes + 2 * p_bytes
+        else:
+            nbytes = (g_bytes + state_bytes + new_state_bytes + u_bytes
+                      + (p_bytes if reads_params else 0))
+        out[name] = {"store": store, "ms": statistics.median(windows),
+                     "ms_windows": windows, "bound_bytes": nbytes,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "card_vs_cpu": worst}
+        del results, params, state, holder
+        torch.cuda.empty_cache()
+    emit("optim_card_vs_cpu", phase_seconds=time.perf_counter() - t0,
+         transforms=out,
+         leaves={k: list(v.shape) for k, v in base.items()},
+         bounds={"f32_rtol": OPT_F32_RTOL, "f32_atol_rel": OPT_F32_ATOL_REL,
+                 "bf16": "1 ulp of itself + 1 ulp of the leaf's max"})
     return out
 
 
@@ -1965,6 +2385,9 @@ def main() -> int:
         work = Path(tmp)
         main_path = phase_main_path(work)
         phase_step_time(work)
+        lean = phase_linear_lean_path(work)
+        accum = phase_linear_accum_path(work)
+        phase_optim_card_vs_cpu()
         phase_vtt_main_path(work)
         phase_vtt_card_vs_cpu()
         phase_vtt_step_time(work)
@@ -1986,20 +2409,24 @@ def main() -> int:
         del cebra_model
         etl = phase_etl_main_path(work)
     # launches on the paths that run the kernel (every other path: 0)
-    kernel["launches"] = main_path["launches"] + probe["launches"]
+    kernel["launches"] = (main_path["launches"] + lean["launches"]
+                          + probe["launches"])
     kernel["launches_by_path"] = {
         "linear": main_path["launches"],
         "linear_resume": main_path["resume_steps"],
+        "linear_lean": lean["launches"],
+        "linear_lean_resume": lean["resume_launches"],
+        "linear_accum": accum["launches"],
         "probe": probe["launches"], "probe_resume": probe["resume_launches"],
         "serve": serve["fused_readout_launches"]
         + vtt_serve["fused_readout_launches"],
         "export": export["fused_readout_launches"],
         "cebra": cebra["fused_readout_launches"],
         "etl": etl["fused_readout_launches"]}
-    if any(kernel["launches_by_path"][p] for p in ("serve", "export",
-                                                   "cebra", "etl")):
-        raise AssertionError(f"the fused readout ran on an inference, "
-                             f"embedding or ETL path: "
+    if any(kernel["launches_by_path"][p] for p in (
+            "linear_accum", "serve", "export", "cebra", "etl")):
+        raise AssertionError(f"the fused readout ran under accumulation or "
+                             f"on an inference, embedding or ETL path: "
                              f"{kernel['launches_by_path']}")
     kernel["probe"]["launches"] = probe["launches"]
     print(json.dumps({"kernels": [kernel]}), flush=True)

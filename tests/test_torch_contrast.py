@@ -21,6 +21,7 @@ Tolerances:
 
 import json
 import os
+import sys
 from pathlib import Path
 
 import jax
@@ -331,7 +332,10 @@ def test_pretrain_then_test_cli(cache, tmp_path, monkeypatch, short, cls,
     os.symlink(log_dir, log_dir.parent / "40000")
     bps = t_test.main(common, data=data)
     assert len(bps) == 1 and np.isfinite(bps[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --save_plot without matplotlib fails before any work, naming it
+    # (tests/test_torch_viz.py runs the figures themselves)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib"):
         t_test.main(common + ["--save_plot"], data=data)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

@@ -16,6 +16,7 @@ CPU (JAX at ``jax_default_matmul_precision`` "highest"). Tolerances:
 - ``cal_of``: a GIF each, the ``of`` features within atol 1e-4.
 """
 
+import sys
 import tarfile
 from pathlib import Path
 
@@ -392,8 +393,11 @@ def test_cli_test_argv(monkeypatch, argv, code):
             assert e.value.code == code
 
 
-def test_cli_test_save_plot_raises():
+def test_cli_test_save_plot_raises(monkeypatch):
+    """--save_plot on a machine without matplotlib (the card's) raises an
+    ImportError naming it before any work."""
     from video_spike_torch.cli import test as ttest
 
-    with pytest.raises(NotImplementedError, match="item 16"):
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib"):
         ttest.main(["--plot_dir", "x", "--save_plot"])

@@ -203,20 +203,42 @@ def _opt_config(**opt):
     return DictConfig({"optimizer": {**base, **opt}})
 
 
-def test_make_optimizer_names():
-    tx, sched = toptim.make_optimizer(_opt_config(), 1000)
-    assert isinstance(tx, toptim.AdamW)
-    tx, _ = toptim.make_optimizer(_opt_config(
-        name="adafactor", param_scale=False, clipping=None,
-        param_dtype="bfloat16_sr"), 1000)
-    assert isinstance(tx, toptim.Adafactor)
-    ref = optax.cosine_onecycle_schedule(1000, 5e-5, 0.15, 10, 1e4)
-    assert sched(150) == pytest.approx(float(ref(150)), rel=1e-6)
-    for opt in [dict(name="adafactor_lean"),
-                dict(name="adafactor"),                  # param_scale default
-                dict(param_dtype="bfloat16_sr"),         # adamw_sr_bf16
-                dict(lowmem_state=True),
-                dict(mu_dtype="bfloat16"),
-                dict(gradient_accumulation_steps=4)]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            toptim.make_optimizer(_opt_config(**opt), 1000)
+MAKE_CASES = [
+    ({}, toptim.AdamW),
+    (dict(name="adafactor", param_scale=False, clipping=None,
+          param_dtype="bfloat16_sr"), toptim.Adafactor),
+    (dict(name="adafactor_lean"), toptim.AdafactorLean),
+    (dict(name="adafactor"), toptim.Adafactor),       # param_scale default
+    (dict(param_dtype="bfloat16_sr"), toptim.AdamWLowmem),  # adamw_sr_bf16
+    (dict(lowmem_state=True), toptim.AdamWLowmem),
+    (dict(mu_dtype="bfloat16"), toptim.AdamW),
+    (dict(gradient_accumulation_steps=4), toptim.MultiSteps),
+]
+
+
+@pytest.mark.parametrize("opt,cls", MAKE_CASES,
+                         ids=[str(sorted(o.items())) for o, _ in MAKE_CASES])
+def test_make_optimizer_names(opt, cls):
+    """Each optimizer config builds the transform JAX's make_optimizer
+    picks: the port's class, and the same updates over 4 steps of an f32
+    tree (rtol 1e-5, atol 1e-6 of the largest update: the f32 rule above,
+    with XLA's f32 sqrt not correctly rounded) and the same schedule."""
+    from video_spike_tpu.core.config import DictConfig as JConfig
+    from video_spike_tpu.train.base import make_optimizer as j_make
+
+    tx_t, sched = toptim.make_optimizer(_opt_config(**opt), 1000)
+    assert isinstance(tx_t, cls)
+    cfg = _opt_config(**opt)
+    tx_j, sched_j = j_make(JConfig({"optimizer": dict(cfg.optimizer)}), 1000)
+    for c in (0, 150, 999):
+        assert sched(c) == pytest.approx(float(sched_j(c)), rel=1e-6)
+    jp, jg, tp, tg = _trees("float32", seed=6)
+    js, ts = tx_j.init(jp), tx_t.init(tp)
+    for step in range(4):
+        ju, js = tx_j.update(jg[step], js, jp)
+        tu, ts = tx_t.update(tg[step], ts, tp)
+        for k in tp:
+            ref = np.asarray(ju[k])
+            np.testing.assert_allclose(
+                tu[k].numpy(), ref, rtol=1e-5,
+                atol=1e-6 * float(np.abs(ref).max()), err_msg=f"{step} {k}")

@@ -14,11 +14,15 @@ frame steps subsampled to the 100 spike bins with the global numpy stream
 that ``set_seed`` seeds) and prints per-eid and mean bps. Returns the
 per-eid bps list.
 
-``--plot_dir`` (default ``.``) is accepted as the JAX CLI accepts it;
-``--save_plot`` (embedding figures and GIFs written there) is not ported
-and raises (ROADMAP.md Queue A item 16). As in ``cli/pretrain.py``, ``main(argv,
-data=...)`` takes the split dict of ``cli/create_eid_data.split_dict`` in
-place of the h5.
+``--save_plot`` writes, under ``--plot_dir`` (default ``.``), the train
+embedding (``<model>_<eid5>_embed.png``), the first test trial's
+(``test_embed_<model>_<eid5>.png``), and for the first 5 test trials the
+raw video and the embedding trajectory as GIFs
+(``test_<model>_<eid5>_<i>.gif``, ``test_embed_<model>_<eid5>_<i>.gif``),
+from the full 120-step embeddings; it needs matplotlib and imageio and
+raises naming matplotlib before any work when it is missing. As in
+``cli/pretrain.py``, ``main(argv, data=...)`` takes the split dict of
+``cli/create_eid_data.split_dict`` in place of the h5.
 """
 
 from __future__ import annotations
@@ -52,10 +56,9 @@ def main(argv=None, data=None):
     extra, rest = parser.parse_known_args(argv)
     args = get_args(rest)
     if args.save_plot:
-        raise NotImplementedError(
-            "--save_plot (embedding figures and GIFs under --plot_dir) is "
-            "not ported yet; see ROADMAP.md Queue A item 16 (tracking, "
-            "results and figures)")
+        from video_spike_torch.viz import pyplot
+
+        pyplot()   # no matplotlib: fail now, not after the embedding
     device = resolve_device(args.device)
     config = config_from_kwargs({"model": f"include:{args.model_config}"})
     config = update_config(args.train_config, config)
@@ -96,23 +99,60 @@ def main(argv=None, data=None):
         e_dim = train_emb.shape[-1]
         train_emb = train_emb.reshape(train_y.shape[0], -1, e_dim)
         test_emb = test_emb.reshape(test_y.shape[0], -1, e_dim)
-        # subsample the 120 frame steps down to the 100 spike bins
+        # subsample the 120 frame steps down to the 100 spike bins for the
+        # RRR fit only; the figures use the full trajectories
         t_frames, t_bins = train_emb.shape[1], train_y.shape[1]
         if t_frames > t_bins:
             idx = np.sort(np.random.choice(t_frames - 1, t_bins,
                                            replace=False))
-            train_emb, test_emb = train_emb[:, idx], test_emb[:, idx]
+            train_emb_rrr, test_emb_rrr = train_emb[:, idx], test_emb[:, idx]
+        else:
+            train_emb_rrr, test_emb_rrr = train_emb, test_emb
 
-        data_dict = {eid: {"X": [train_emb, test_emb],
+        data_dict = {eid: {"X": [train_emb_rrr, test_emb_rrr],
                            "y": [train_y, test_y], "setup": {}}}
         result = train_rrr(data_dict, device=device)
         bps = float(np.nanmean(result[eid]["bps"]))
         log.info(f"eid {eid[:5]}: bps={bps:.5f}")
         test_bps.append(bps)
+        if args.save_plot:
+            _save_plots(Path(extra.plot_dir), args.model, eid, train_emb,
+                        test_emb, test_dl)
 
     log.info(f"per-eid bps: {[round(b, 5) for b in test_bps]}")
     log.info(f"mean bps: {np.mean(test_bps):.5f}")
     return test_bps
+
+
+def _save_plots(out_dir: Path, model: str, eid: str, train_emb: np.ndarray,
+                test_emb: np.ndarray, test_dl) -> None:
+    """The JAX CLI's ``--save_plot`` files (reference ``src/test.py:186-
+    239``): two embedding PNGs, then a raw-video GIF and an embedding-
+    trajectory GIF for each of the first 5 test trials."""
+    from video_spike_torch.viz import pyplot
+    from video_spike_torch.viz.embeddings import (
+        plot_embeddings, plot_embeddings_anim, save_numpy_video_to_gif)
+
+    plt = pyplot()
+    e_dim = train_emb.shape[-1]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fig = plot_embeddings(train_emb.reshape(-1, e_dim))
+    fig.savefig(out_dir / f"{model}_{eid[:5]}_embed.png")
+    plt.close(fig)
+    fig = plot_embeddings(test_emb[0], title=f"{model}_{eid[:5]}_embed_test")
+    fig.savefig(out_dir / f"test_embed_{model}_{eid[:5]}.png")
+    plt.close(fig)
+    for idx, batch in enumerate(test_dl):
+        video = np.asarray(batch["ref"])
+        if video.ndim == 5:   # (1, T, C, H, W) batch of one trial
+            video = video[0]
+        save_numpy_video_to_gif(
+            video, str(out_dir / f"test_{model}_{eid[:5]}_{idx}.gif"), fps=10)
+        plot_embeddings_anim(
+            test_emb[idx],
+            str(out_dir / f"test_embed_{model}_{eid[:5]}_{idx}.gif"), fps=10)
+        if idx > 3:
+            break
 
 
 if __name__ == "__main__":

@@ -14,12 +14,23 @@ Optimizer states:
 
 - ``FusedReadoutState(count, row, col)`` <-> the port's namedtuple;
 - optax ``adafactor`` chain state ``(FactoredState(count, v_row, v_col, v),
-  ScaleByScheduleState(count) | EmptyState(), EmptyState())`` <-> the port's
-  ``Adafactor`` state dict;
+  [clip EmptyState], ScaleByScheduleState(count) | EmptyState(), [param
+  scale EmptyState], [EmaState(count, ema)], [decay EmptyState],
+  EmptyState())`` (the bracketed links present as the options are set) <->
+  the port's ``Adafactor`` state dict;
 - optax ``adamw`` chain state ``(ScaleByAdamState(count, mu, nu),
   EmptyState(), ScaleByScheduleState(count) | EmptyState())`` <-> the port's
-  ``AdamW`` state dict; the SSL trainer's constant learning rate has no
-  schedule count (``schedule=False``);
+  ``AdamW`` state dict, a bf16 ``mu`` under ``mu_dtype`` included; the SSL
+  trainer's constant learning rate has no schedule count
+  (``schedule=False``). The JAX package's ``adamw_lowmem`` and
+  ``adamw_sr_bf16`` chains, ``(ScaleByAdamLowmemState(count, mu, nu),
+  EmptyState(), ScaleByScheduleState(count))``, convert through the same
+  two functions to the port's ``AdamWLowmem`` state;
+- ``FactoredRMSState(count, row, col)`` of ``adafactor_lean`` <-> the port's
+  ``AdafactorLean`` state;
+- ``MultiStepsState(mini_step, gradient_step, inner_opt_state, acc_grads,
+  skip_state)`` <-> the port's ``MultiSteps`` state, around any of these
+  (the frozen one included: its ``acc_grads`` hold every leaf);
 - the frozen-path ``optax.multi_transform`` state of a frozen probe
   (``MaskedNode`` placeholders where the backbone is) <-> the port's
   ``Frozen`` state, the inner optimizer's over the trained leaves; under
@@ -149,19 +160,73 @@ def adafactor_state_from_optax(state, device=None) -> dict:
     def conv(tree):
         return flax_to_torch(tree, device)
 
-    return {"count": int(np.asarray(count)), "v_row": conv(v_row),
-            "v_col": conv(v_col), "v": conv(v)}
+    out = {"count": int(np.asarray(count)), "v_row": conv(v_row),
+           "v_col": conv(v_col), "v": conv(v)}
+    for link in state[1:]:
+        if hasattr(link, "ema"):          # optax EmaState (momentum)
+            out["momentum"] = {"count": int(np.asarray(link.count)),
+                               "ema": conv(link.ema)}
+    return out
 
 
-def adafactor_state_to_optax(state: Mapping, schedule: bool = True) -> tuple:
+def adafactor_state_to_optax(state: Mapping, schedule: bool = True, *,
+                             clipping: bool = False,
+                             param_scale: bool = False,
+                             weight_decay: bool = False) -> tuple:
     """The port's ``Adafactor`` state -> plain nested tuples in optax's
-    order (``schedule`` says whether the learning rate was a schedule, which
-    gives optax's chain a ``ScaleByScheduleState`` in its second slot)."""
+    chain order. ``schedule``: the learning rate was a schedule (a
+    ``ScaleByScheduleState``, else an empty link); ``clipping``,
+    ``param_scale``, ``weight_decay``: those options were set (each an
+    empty link); momentum is read off the state."""
     count = np.asarray(state["count"], np.int32)
+    chain = [(count, torch_to_flax(state["v_row"]),
+              torch_to_flax(state["v_col"]), torch_to_flax(state["v"]))]
+    if clipping:
+        chain.append(())
+    chain.append((count,) if schedule else ())
+    if param_scale:
+        chain.append(())
+    if "momentum" in state:
+        mom = state["momentum"]
+        chain.append((np.asarray(mom["count"], np.int32),
+                      torch_to_flax(mom["ema"])))
+    if weight_decay:
+        chain.append(())
+    chain.append(())
+    return tuple(chain)
 
-    factored = (count, torch_to_flax(state["v_row"]),
-                torch_to_flax(state["v_col"]), torch_to_flax(state["v"]))
-    return (factored, (count,) if schedule else (), ())
+
+def lean_state_from_flax(state, device=None) -> dict:
+    """``FactoredRMSState(count, row, col)`` -> the port's ``AdafactorLean``
+    state (bf16 ``row`` and 0-d ``col`` of unfactored leaves kept)."""
+    count, row, col = state
+    return {"count": int(np.asarray(count)),
+            "row": flax_to_torch(row, device),
+            "col": flax_to_torch(col, device)}
+
+
+def lean_state_to_flax(state: Mapping) -> tuple:
+    return (np.asarray(state["count"], np.int32),
+            torch_to_flax(state["row"]), torch_to_flax(state["col"]))
+
+
+def multisteps_state_from_optax(state, inner_from, device=None) -> dict:
+    """``optax.MultiStepsState`` -> the port's ``MultiSteps`` state, the
+    inner state through ``inner_from(inner_state, device)``."""
+    mini, gstep, inner, acc = state[:4]
+    return {"mini_step": int(np.asarray(mini)),
+            "gradient_step": int(np.asarray(gstep)),
+            "inner": inner_from(inner, device),
+            "acc_grads": flax_to_torch(acc, device), "skip_state": ()}
+
+
+def multisteps_state_to_optax(state: Mapping, inner_to) -> tuple:
+    """The port's ``MultiSteps`` state -> plain tuples in
+    ``MultiStepsState``'s order, the inner state through ``inner_to``."""
+    return (np.asarray(state["mini_step"], np.int32),
+            np.asarray(state["gradient_step"], np.int32),
+            inner_to(state["inner"]), torch_to_flax(state["acc_grads"]),
+            ())
 
 
 def adamw_state_from_optax(state, device=None) -> dict:

@@ -237,13 +237,10 @@ def get_cebra_embedding(video: np.ndarray, out_dim: int = 3,
     emb = model.transform(flat)
     assert emb.shape == (n * t, out_dim)
     if save_path:
-        import matplotlib
-
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
+        from video_spike_torch.viz import pyplot
         from video_spike_torch.viz.embeddings import plot_embeddings
 
+        plt = pyplot()
         fig, ax = plt.subplots()
         ax.plot(model.losses_)
         ax.set_xlabel("iteration / 100")

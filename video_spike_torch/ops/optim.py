@@ -1,10 +1,17 @@
 """Optimizers, the one-cycle schedule and stochastic rounding into bf16.
 
 Counterpart of ``video_spike_tpu/ops/optim.py`` (``_hash_bits``,
-``_sr_to_bf16``, ``apply_updates_sr``) and of the optax transforms that
-``video_spike_tpu/train/base.py:make_optimizer`` builds for this slice:
-``optax.adafactor`` (optax 0.2.6, ``_src/factorized.py``), ``optax.adamw``
-and ``optax.cosine_onecycle_schedule``, ported value for value.
+``_sr_to_bf16``, ``apply_updates_sr``, ``adafactor_lean``,
+``scale_by_adam_lowmem`` with ``adamw_lowmem`` / ``adamw_sr_bf16``) and of
+every optax transform that ``video_spike_tpu/train/base.py:make_optimizer``
+builds: ``optax.adafactor`` with each of its options (optax 0.2.6,
+``_src/alias.py:225-327``), ``optax.adamw`` with ``mu_dtype``,
+``optax.MultiSteps`` and ``optax.cosine_onecycle_schedule``, ported value
+for value.
+
+Every optimizer has ``init(params) -> state`` and ``update(grads, state,
+params) -> (updates, state)``; states are plain dicts of tensors and ints
+(so ``torch.load(..., weights_only=True)`` reads a checkpoint of them).
 
 Parameters, gradients and optimizer statistics are flat dicts
 ``{"encoder.Dense_0.kernel": tensor, ...}``. Where order matters (the SR leaf
@@ -22,6 +29,8 @@ from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from video_spike_torch.core.logging import logging as make_logger
 
 MASK32 = 0xFFFFFFFF
 
@@ -161,8 +170,20 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def _weak(c: float, dtype: torch.dtype) -> float:
+    """A Python scalar as JAX's weak typing meets an array of ``dtype``:
+    rounded to that dtype first (bf16(0.9) is 0.8984375), so ``_weak(c,
+    t.dtype) * t`` is ``c * t`` under JAX's promotion rules."""
+    return c if dtype == torch.float32 else float(torch.tensor(c, dtype=dtype))
+
+
+def _mean_as(x: torch.Tensor, dtype: torch.dtype, **kw) -> torch.Tensor:
+    """``jnp.mean``: summed in f32, the mean rounded to ``dtype``."""
+    return x.float().mean(**kw).to(dtype)
+
+
 # ---------------------------------------------------------------------------
-# optax.adafactor (param_scale=False, clipping=None, no momentum / decay)
+# optax.adafactor
 # ---------------------------------------------------------------------------
 
 def _pow_neg_half(x: torch.Tensor) -> torch.Tensor:
@@ -183,22 +204,36 @@ def factored_dims(shape, min_dim_size_to_factor: int = 128):
 
 
 class Adafactor:
-    """``optax.adafactor(lr, multiply_by_parameter_scale=False,
-    clipping_threshold=None)``: factored second-moment scaling, then ``lr``,
-    then ``-1``.
+    """``optax.adafactor(lr, multiply_by_parameter_scale,
+    clipping_threshold, momentum, weight_decay_rate)``, optax's chain in its
+    order: factored second-moment scaling, block-RMS clipping (when
+    ``clipping_threshold`` is set), ``lr``, the parameter's block RMS
+    (``multiply_by_parameter_scale``, floored at 1e-3), an f32 EMA of the
+    updates (``momentum``, not debiased), ``+ weight_decay_rate * p``, then
+    ``-1``. The defaults here are the lean setting (no parameter scale, no
+    clipping), which the fused readout step pairs with.
 
     As in optax, every statistic is stored in the param's dtype (bf16 for a
     bf16 leaf) and the factored axes are the two largest, wherever they sit.
     The state mirrors optax's ``FactoredState``: ``count`` plus per-leaf
     ``v_row``, ``v_col`` (factored) and ``v`` (unfactored) with (1,)-shaped
-    placeholders."""
+    placeholders; with ``momentum`` also ``momentum: {count, ema}``
+    (optax's ``EmaState``, f32 accumulators)."""
 
     def __init__(self, learning_rate, decay_rate: float = 0.8,
-                 eps: float = 1e-30, min_dim_size_to_factor: int = 128):
+                 eps: float = 1e-30, min_dim_size_to_factor: int = 128,
+                 multiply_by_parameter_scale: bool = False,
+                 clipping_threshold: Optional[float] = None,
+                 momentum: Optional[float] = None,
+                 weight_decay_rate: Optional[float] = None):
         self.lr = learning_rate
         self.decay_rate = decay_rate
         self.eps = eps
         self.min_dim = min_dim_size_to_factor
+        self.param_scale = bool(multiply_by_parameter_scale)
+        self.clipping = clipping_threshold
+        self.momentum = momentum
+        self.weight_decay = weight_decay_rate
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
         v_row, v_col, v = {}, {}, {}
@@ -214,7 +249,32 @@ class Adafactor:
                 v_row[k] = torch.zeros((1,), **kw)
                 v_col[k] = torch.zeros((1,), **kw)
                 v[k] = torch.zeros(p.shape, **kw)
-        return {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
+        state = {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
+        if self.momentum is not None:
+            state["momentum"] = {"count": 0, "ema": {
+                k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for k, p in params.items()}}
+        return state
+
+    def _chain_tail(self, k: str, u: torch.Tensor, lr: float,
+                    p: torch.Tensor, state: dict, ema: dict) -> torch.Tensor:
+        """Every link after the factored scaling, for one leaf."""
+        if self.clipping is not None:
+            rms = torch.sqrt(_mean_as(u * u, u.dtype)) / self.clipping
+            u = u / torch.maximum(torch.ones_like(rms), rms)
+        u = _weak(lr, u.dtype) * u
+        if self.param_scale:
+            rms = torch.sqrt(_mean_as(p * p, p.dtype))
+            u = u * torch.where(rms <= 1e-3,
+                                torch.full_like(rms, 1e-3), rms)
+        if self.momentum is not None:
+            new = (_weak(1 - self.momentum, u.dtype) * u
+                   + self.momentum * state["momentum"]["ema"][k])
+            ema[k] = new.float()
+            u = new
+        if self.weight_decay is not None:
+            u = u + _weak(self.weight_decay, p.dtype) * p
+        return -1 * u
 
     def update(self, grads: Mapping[str, torch.Tensor], state: dict,
                params: Mapping[str, torch.Tensor]):
@@ -223,23 +283,22 @@ class Adafactor:
                      ** np.float32(-self.decay_rate))
         keep = _f32(np.float32(1.0) - np.float32(decay))
         lr = _lr_at(self.lr, count)
-        updates, v_row, v_col, v = {}, {}, {}, {}
+        updates, v_row, v_col, v, ema = {}, {}, {}, {}, {}
         for k, g in grads.items():
             dtype = params[k].dtype
             g_sq = g * g + self.eps
             dims = factored_dims(tuple(g.shape), self.min_dim)
             if dims is not None:
                 d1, d0 = dims
-                # jnp.mean of a bf16 array sums in f32 and rounds the mean
-                mean_r = g_sq.float().mean(dim=d0).to(g.dtype).float()
-                mean_c = g_sq.float().mean(dim=d1).to(g.dtype).float()
+                mean_r = _mean_as(g_sq, g.dtype, dim=d0).float()
+                mean_c = _mean_as(g_sq, g.dtype, dim=d1).float()
                 new_r = (decay * state["v_row"][k].float()
                          + keep * mean_r).to(dtype)
                 new_c = (decay * state["v_col"][k].float()
                          + keep * mean_c).to(dtype)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                rc_mean = new_r.float().mean(dim=reduced_d1,
-                                             keepdim=True).to(dtype)
+                rc_mean = _mean_as(new_r, dtype, dim=reduced_d1,
+                                   keepdim=True)
                 row_factor = _pow_neg_half(new_r / rc_mean)
                 col_factor = _pow_neg_half(new_c)
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
@@ -251,10 +310,13 @@ class Adafactor:
                 u = g * _pow_neg_half(new_v)
                 v_row[k], v_col[k] = state["v_row"][k], state["v_col"][k]
                 v[k] = new_v
-            lr_t = torch.tensor(lr, dtype=g.dtype, device=g.device)
-            updates[k] = -(lr_t * u)
-        return updates, {"count": count + 1, "v_row": v_row,
-                         "v_col": v_col, "v": v}
+            updates[k] = self._chain_tail(k, u, lr, params[k], state, ema)
+        new_state = {"count": count + 1, "v_row": v_row, "v_col": v_col,
+                     "v": v}
+        if self.momentum is not None:
+            new_state["momentum"] = {
+                "count": int(state["momentum"]["count"]) + 1, "ema": ema}
+        return updates, new_state
 
 
 # ---------------------------------------------------------------------------
@@ -262,19 +324,27 @@ class Adafactor:
 # ---------------------------------------------------------------------------
 
 class AdamW:
-    """``optax.adamw(lr, b1, b2, eps, weight_decay)``: Adam moments in the
-    param dtype, bias correction, decoupled weight decay added to the
-    update, then ``-lr``. State: ``count``, ``mu``, ``nu``."""
+    """``optax.adamw(lr, b1, b2, eps, weight_decay, mu_dtype)``: Adam
+    moments in the param dtype, bias correction, decoupled weight decay
+    added to the update, then ``-lr``. State: ``count``, ``mu``, ``nu``.
+
+    With ``mu_dtype`` (optax's ``scale_by_adam``) the first moment is
+    stored in that dtype: the step reads it back, forms the new moment in
+    the promoted dtype, uses that for the update and only then casts it
+    for storage."""
 
     def __init__(self, learning_rate, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, weight_decay: float = 1e-4):
+                 eps: float = 1e-8, weight_decay: float = 1e-4,
+                 mu_dtype: Optional[torch.dtype] = None):
         self.lr = learning_rate
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
+        self.mu_dtype = mu_dtype
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
         return {"count": 0,
-                "mu": {k: torch.zeros_like(p) for k, p in params.items()},
+                "mu": {k: torch.zeros_like(p, dtype=self.mu_dtype)
+                       for k, p in params.items()},
                 "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
 
     def update(self, grads: Mapping[str, torch.Tensor], state: dict,
@@ -286,21 +356,125 @@ class AdamW:
         lr = _lr_at(self.lr, count)
         updates, mu, nu = {}, {}, {}
         for k, g in grads.items():
-            mu[k] = (1 - self.b1) * g + self.b1 * state["mu"][k]
-            nu[k] = (1 - self.b2) * (g * g) + self.b2 * state["nu"][k]
-            u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)
-            u = u + self.weight_decay * params[k]
+            mu_k, nu_k, p = state["mu"][k], state["nu"][k], params[k]
+            m = (_weak(1 - self.b1, g.dtype) * g
+                 + _weak(self.b1, mu_k.dtype) * mu_k)
+            nu[k] = (_weak(1 - self.b2, g.dtype) * (g * g)
+                     + _weak(self.b2, nu_k.dtype) * nu_k)
+            u = (m / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)
+            u = u + _weak(self.weight_decay, p.dtype) * p
             updates[k] = -lr * u
+            mu[k] = m if self.mu_dtype is None else m.to(self.mu_dtype)
         return updates, {"count": c, "mu": mu, "nu": nu}
 
 
 # ---------------------------------------------------------------------------
-# make_optimizer (train/base.py:50-135, the names this slice ports)
+# the JAX package's own transforms (video_spike_tpu/ops/optim.py)
 # ---------------------------------------------------------------------------
 
-_NOT_PORTED = ("is not ported yet; see ROADMAP.md Queue A item 17 "
-               "(optimizer variants)")
+class AdamWLowmem:
+    """``adamw_lowmem`` and ``adamw_sr_bf16`` (one chain under two names):
+    ``scale_by_adam_lowmem`` (Adam in f32 math, both moments stored in
+    bf16, the step cast to the gradient's dtype), ``+ weight_decay * p``,
+    then ``-lr`` in the update's dtype. Pair the bf16-store variant with
+    :func:`apply_updates_sr`. State: ``count``, ``mu``, ``nu``."""
 
+    def __init__(self, learning_rate, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.0):
+        self.lr = learning_rate
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> dict:
+        return {"count": 0,
+                "mu": {k: torch.zeros_like(p, dtype=torch.bfloat16)
+                       for k, p in params.items()},
+                "nu": {k: torch.zeros_like(p, dtype=torch.bfloat16)
+                       for k, p in params.items()}}
+
+    def update(self, grads: Mapping[str, torch.Tensor], state: dict,
+               params: Mapping[str, torch.Tensor]):
+        count = int(state["count"])
+        c = np.float32(count + 1)
+        c1 = _f32(np.float32(1.0) - np.float32(self.b1) ** c)
+        c2 = _f32(np.float32(1.0) - np.float32(self.b2) ** c)
+        lr = _lr_at(self.lr, count)
+        updates, mu, nu = {}, {}, {}
+        for k, g in grads.items():
+            g32 = g.float()
+            m32 = self.b1 * state["mu"][k].float() + (1 - self.b1) * g32
+            v32 = (self.b2 * state["nu"][k].float()
+                   + (1 - self.b2) * g32 * g32)
+            step = ((m32 / c1) / (torch.sqrt(v32 / c2) + self.eps)).to(g.dtype)
+            step = step + _weak(self.weight_decay, params[k].dtype) * params[k]
+            updates[k] = _weak(-lr, step.dtype) * step
+            mu[k], nu[k] = m32.to(torch.bfloat16), v32.to(torch.bfloat16)
+        return updates, {"count": count + 1, "mu": mu, "nu": nu}
+
+
+def _lean_factored(p: torch.Tensor, min_dim: int) -> bool:
+    return p.ndim == 2 and min(p.shape) >= min_dim
+
+
+class AdafactorLean:
+    """``adafactor_lean``: the JAX package's factored RMS without side
+    passes. A 2-D leaf with both dims >= ``min_factor_dim`` keeps f32 row
+    (M,) and column (N,) mean squares of ``g*g + eps``; any other leaf a
+    full bf16 ``v`` in ``row`` beside a 0-d f32 placeholder in ``col``. The
+    decay is ``1 - t^-0.8``, the learning rate is the schedule at the count
+    before the increment, the step ``-lr * g * rsqrt(r / mean(r)) *
+    rsqrt(c)`` (f32 math, no clamp) is emitted in the gradient's dtype.
+    State: ``count``, ``row``, ``col`` (``FactoredRMSState``)."""
+
+    def __init__(self, learning_rate, decay_rate: float = 0.8,
+                 eps: float = 1e-30, min_factor_dim: int = 128):
+        self.lr = learning_rate
+        self.decay_rate = decay_rate
+        self.eps = eps
+        self.min_dim = min_factor_dim
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> dict:
+        row, col = {}, {}
+        for k, p in params.items():
+            kw = dict(dtype=torch.float32, device=p.device)
+            if _lean_factored(p, self.min_dim):
+                row[k] = torch.zeros((p.shape[0],), **kw)
+                col[k] = torch.zeros((p.shape[1],), **kw)
+            else:
+                row[k] = torch.zeros_like(p, dtype=torch.bfloat16)
+                col[k] = torch.zeros((), **kw)
+        return {"count": 0, "row": row, "col": col}
+
+    def update(self, grads: Mapping[str, torch.Tensor], state: dict,
+               params: Optional[Mapping[str, torch.Tensor]] = None):
+        count = int(state["count"])
+        beta = np.float32(1.0) - np.float32(count + 1) ** np.float32(
+            -self.decay_rate)
+        keep = float(np.float32(1.0) - beta)
+        beta = float(beta)
+        neg_lr = -_lr_at(self.lr, count)
+        updates, row, col = {}, {}, {}
+        for k, g in grads.items():
+            r, c = state["row"][k], state["col"][k]
+            g32 = g.float()
+            g2 = g32 * g32 + self.eps
+            if r.ndim == 1 and g.ndim == 2:
+                r = beta * r + keep * g2.mean(dim=1)
+                c = beta * c + keep * g2.mean(dim=0)
+                denom = (torch.rsqrt(r / r.mean())[:, None]
+                         * torch.rsqrt(c)[None, :])
+                updates[k] = (neg_lr * g32 * denom).to(g.dtype)
+            else:
+                v32 = beta * r.float() + keep * g2
+                updates[k] = (neg_lr * g32 * torch.rsqrt(v32)).to(g.dtype)
+                r = v32.to(torch.bfloat16)
+            row[k], col[k] = r, c
+        return updates, {"count": count + 1, "row": row, "col": col}
+
+
+# ---------------------------------------------------------------------------
+# frozen paths and gradient accumulation
+# ---------------------------------------------------------------------------
 
 def is_frozen(name: str, frozen_paths) -> bool:
     """A leaf is frozen when any part of its dotted name is a frozen path
@@ -332,17 +506,64 @@ class Frozen:
                                  self.trainable(params))
 
 
+class MultiSteps:
+    """``optax.MultiSteps(inner, every_k_schedule=k)``: the gradients of k
+    micro-steps are averaged (``acc + (g - acc) / (n + 1)``) and the k-th
+    passes their mean to ``inner``; the other micro-steps emit zero updates
+    and leave the inner state, and so its count and schedule, as they were.
+    As in optax the inner update is formed on every micro-step and kept on
+    the k-th only, and ``acc_grads`` (zeros like the params at init, a
+    frozen leaf's staying zero) takes the update's dtype after each step.
+    State: ``mini_step``, ``gradient_step``, ``inner``, ``acc_grads``,
+    ``skip_state`` (empty: no skip function)."""
+
+    def __init__(self, inner, every_k: int):
+        self.inner = inner
+        self.every_k = int(every_k)
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> dict:
+        return {"mini_step": 0, "gradient_step": 0,
+                "inner": self.inner.init(params),
+                "acc_grads": {k: torch.zeros_like(p)
+                              for k, p in params.items()},
+                "skip_state": ()}
+
+    def update(self, grads: Mapping[str, torch.Tensor], state: dict,
+               params: Mapping[str, torch.Tensor]):
+        n = int(state["mini_step"])
+        emit = n == self.every_k - 1
+        acc = dict(state["acc_grads"])
+        for k, g in grads.items():
+            acc[k] = acc[k] + (g - acc[k]) / (n + 1)
+        final, inner = self.inner.update({k: acc[k] for k in grads},
+                                         state["inner"], params)
+        for k, u in final.items():
+            acc[k] = torch.zeros_like(u) if emit else acc[k].to(u.dtype)
+        if not emit:
+            final = {k: u * 0 for k, u in final.items()}
+            inner = state["inner"]
+        return final, {"mini_step": (n + 1) % self.every_k,
+                       "gradient_step": int(state["gradient_step"]) + emit,
+                       "inner": inner, "acc_grads": acc, "skip_state": ()}
+
+
+# ---------------------------------------------------------------------------
+# make_optimizer (video_spike_tpu/train/base.py:50-135)
+# ---------------------------------------------------------------------------
+
 def make_optimizer(config, total_steps: int, frozen_paths: tuple = ()):
-    """(optimizer, schedule) for ``config.optimizer``: AdamW (the yaml
-    default) or lean adafactor, with the OneCycle cosine schedule of the JAX
-    trainer; with ``frozen_paths`` (names of parameter subtrees, the torch
-    ``requires_grad=False`` analog) wrapped in :class:`Frozen`. Options
-    outside this slice raise ``NotImplementedError``."""
+    """(optimizer, schedule) for ``config.optimizer``, in the JAX trainer's
+    branch order: ``name: adafactor_lean``; ``name: adafactor`` (optax's
+    options ``param_scale``, ``clipping``, ``momentum``, ``adafactor_wd``);
+    ``param_dtype: bfloat16_sr`` (``adamw_sr_bf16``); ``lowmem_state``
+    (``adamw_lowmem``); otherwise AdamW with ``mu_dtype``, whatever the
+    name. The schedule is the OneCycle cosine over ``total_steps /
+    gradient_accumulation_steps`` real steps. ``frozen_paths`` (names of
+    parameter subtrees, the torch ``requires_grad=False`` analog) wraps the
+    optimizer in :class:`Frozen`, and ``gradient_accumulation_steps > 1``
+    wraps that in :class:`MultiSteps`."""
     opt = config.optimizer
     accum = int(opt.get("gradient_accumulation_steps", 1) or 1)
-    if accum > 1:
-        raise NotImplementedError(f"gradient_accumulation_steps={accum} "
-                                  + _NOT_PORTED)
     # a handful of steps makes the warmup interval round to zero length
     # inside the piecewise interpolation -> nan lr; floor at 16
     schedule = cosine_onecycle_schedule(
@@ -353,30 +574,30 @@ def make_optimizer(config, total_steps: int, frozen_paths: tuple = ()):
         final_div_factor=1e4,
     )
     name = opt.get("name", "adamw")
-    if name == "adafactor":
-        lean = (opt.get("param_scale", True) is False
-                and opt.get("clipping", 1.0) is None
-                and opt.get("momentum") is None
-                and opt.get("adafactor_wd") is None)
-        if not lean:
-            raise NotImplementedError(
-                "adafactor with param_scale, clipping, momentum or "
-                "adafactor_wd " + _NOT_PORTED
-                + "; set param_scale: false, clipping: null")
-        tx = Adafactor(schedule)
-    elif name != "adamw":
-        raise NotImplementedError(f"optimizer.name={name!r} " + _NOT_PORTED)
+    wd, eps = opt.get("wd", 0.01), opt.get("eps", 1e-8)
+    if name == "adafactor_lean":
+        tx = AdafactorLean(schedule)
+    elif name == "adafactor":
+        tx = Adafactor(
+            schedule, momentum=opt.get("momentum"),
+            weight_decay_rate=opt.get("adafactor_wd"),
+            multiply_by_parameter_scale=opt.get("param_scale", True),
+            clipping_threshold=opt.get("clipping", 1.0))
     elif opt.get("param_dtype") == "bfloat16_sr":
-        raise NotImplementedError(
-            "adamw with param_dtype=bfloat16_sr (adamw_sr_bf16) "
-            + _NOT_PORTED)
+        tx = AdamWLowmem(schedule, weight_decay=wd, eps=eps)   # adamw_sr_bf16
     elif opt.get("lowmem_state"):
-        raise NotImplementedError("adamw_lowmem " + _NOT_PORTED)
-    elif opt.get("mu_dtype"):
-        raise NotImplementedError("adamw mu_dtype " + _NOT_PORTED)
+        tx = AdamWLowmem(schedule, weight_decay=wd, eps=eps)   # adamw_lowmem
     else:
-        tx = AdamW(schedule, weight_decay=opt.get("wd", 0.01),
-                   eps=opt.get("eps", 1e-8))
+        if name != "adamw":
+            make_logger(header="[optim]").info(
+                f"optimizer.name={name!r} is not one of adamw, adafactor, "
+                f"adafactor_lean: training with AdamW, as the JAX trainer "
+                f"does")
+        tx = AdamW(schedule, weight_decay=wd, eps=eps,
+                   mu_dtype=(torch.bfloat16
+                             if opt.get("mu_dtype") == "bfloat16" else None))
     if frozen_paths:
         tx = Frozen(tx, frozen_paths)
+    if accum > 1:
+        tx = MultiSteps(tx, accum)
     return tx, schedule

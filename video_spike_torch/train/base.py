@@ -12,12 +12,17 @@ Counterpart of ``video_spike_tpu/train/base.py:BaseTrainer`` on one device
   capped at ``device_cache_gb``); each step gathers its batch there, the
   ragged last batch is padded by repeating indices, and a dataset over the
   cap streams batch by batch instead;
+- every optimizer of ``ops/optim.make_optimizer`` (AdamW, ``mu_dtype``,
+  ``adamw_lowmem``, ``adamw_sr_bf16``, optax's adafactor with its options,
+  ``adafactor_lean``) and ``optimizer.gradient_accumulation_steps`` (each
+  micro-step one loader batch; updates land every k-th);
 - with ``optimizer.param_dtype: bfloat16_sr`` leaves of >= 65,536 elements
   are stored in bf16 with stochastically rounded updates, and with
-  ``optimizer.fused_readout`` the Linear model's first kernel, or the
-  VideoMAE probe's ``encoder_head`` kernel, is updated by the fused rank-B
-  step (``ops/fused_readout.py``) whose parameter write is the hand-written
-  CUDA kernel;
+  ``optimizer.fused_readout`` under ``adafactor`` or ``adafactor_lean``
+  (and no accumulation) the Linear model's first kernel, or the VideoMAE
+  probe's ``encoder_head`` kernel, is updated by the fused rank-B step
+  (``ops/fused_readout.py``) whose parameter write is the hand-written CUDA
+  kernel, the other leaves by the configured optimizer;
 - a model with frozen parameter paths (``VideoMAEProbe``) keeps them out of
   the optimizer; with an ``encode`` / ``head`` split its frozen backbone
   encodes every staged trial once (``_encode_staged_trials``) and the steps
@@ -26,11 +31,17 @@ Counterpart of ``video_spike_tpu/train/base.py:BaseTrainer`` on one device
 - eval accumulates gt/preds per session and reports nanmean bps + per-trial
   R² (on the device for one session, on the host for the test report);
 - ``model_best`` on best eval bps, ``model_last`` (params + optimizer state
-  + step) at the end, then ``test_results.npy`` from the best params.
+  + step) at the end, then ``test_results.npy`` from the best params;
+- every epoch's line goes to ``<log_dir>/metrics.jsonl`` (``core/tracking``,
+  wandb mirrored under ``wandb.use``); ``save_plot`` writes
+  ``best_trial_<tag>.png`` and ``best_neuron_<tag>.png`` at each new best
+  epoch and for the test split; ``profiling: {enable, dir, steps}`` traces
+  ``steps`` steps of the streaming epoch once ``global_step > 2`` with
+  ``torch.profiler`` into ``dir`` (the cached epoch is not traced, as in
+  the JAX trainer).
 
-Not in this slice (ROADMAP.md): the device mesh and multihost, the
-profiler, wandb tracking, asynchronous checkpoint flushes and figure
-plotting.
+Not in this slice (ROADMAP.md): the device mesh and multihost (item 14)
+and asynchronous checkpoint flushes (item 18).
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ import torch
 
 from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
+from video_spike_torch.core.tracking import Tracker
 from video_spike_torch.data.dataset import input_modalities
 from video_spike_torch.models.videomae import head_apply
 from video_spike_torch.ops import fused_readout as fr
@@ -86,9 +98,9 @@ class BaseTrainer:
         self.input_mods = input_modalities(config)
         self.model_class = config.model.model_class
         if config.get("save_plot"):
-            raise NotImplementedError(
-                "save_plot (figures) is not ported yet; see ROADMAP.md "
-                "(trainer paths this slice leaves out)")
+            from video_spike_torch.viz import pyplot
+
+            pyplot()   # no matplotlib: fail now, not after training
 
         base_log_dir = log_dir or config.dirs.log_dir
         self.log_dir = os.path.join(
@@ -131,19 +143,26 @@ class BaseTrainer:
 
         self._sr_params = (config.optimizer.get("param_dtype")
                            == "bfloat16_sr")
+        # the fused step's kernel update is adafactor_lean's numerics; it
+        # cannot sit under MultiSteps (which wraps tx.update)
         self._fused_readout = bool(config.optimizer.get("fused_readout"))
-        opt_name = config.optimizer.get("name", "adamw")
-        if self._fused_readout and opt_name != "adafactor":
-            # the fused step IS adafactor numerics on the giant kernel
-            self.log.info(f"fused_readout disabled: it implements adafactor "
-                          f"numerics but optimizer.name={opt_name} "
-                          f"(set name: adafactor)")
-            self._fused_readout = False
-        elif (self._fused_readout and self._frozen_paths
-              and not self._frozen_split):
-            self.log.info("fused_readout disabled: frozen paths without an "
-                          "encode/head split")
-            self._fused_readout = False
+        if self._fused_readout:
+            opt_name = config.optimizer.get("name", "adamw")
+            if int(config.optimizer.get(
+                    "gradient_accumulation_steps", 1) or 1) > 1:
+                self.log.info("fused_readout disabled: incompatible with "
+                              "gradient accumulation")
+                self._fused_readout = False
+            elif self._frozen_paths and not self._frozen_split:
+                self.log.info("fused_readout disabled: frozen paths "
+                              "without an encode/head split")
+                self._fused_readout = False
+            elif opt_name not in ("adafactor", "adafactor_lean"):
+                self.log.info(
+                    f"fused_readout disabled: it implements adafactor "
+                    f"numerics but optimizer.name={opt_name} "
+                    f"(set name: adafactor)")
+                self._fused_readout = False
         self._apply_updates = (apply_updates_sr if self._sr_params
                                else apply_updates)
 
@@ -155,6 +174,18 @@ class BaseTrainer:
         self._start_epoch = 0
         self.train_losses: list = []
         self.eval_history: list = []
+
+        wandb_cfg = config.get("wandb", {}) or {}
+        self.tracker = Tracker(
+            self.log_dir, project=wandb_cfg.get("project", "ibl-video"),
+            name=f"{eid[:5]}_{'_'.join(self.input_mods)}_"
+                 f"{type(model).__name__}",
+            use_wandb=bool(wandb_cfg.get("use", False)),
+            config=config.to_plain() if hasattr(config, "to_plain") else None)
+        prof = config.get("profiling", {}) or {}
+        self._profile_dir = prof.get("dir") if prof.get("enable") else None
+        self._profile_steps = prof.get("steps", 10)
+        self.trace_paths: list = []
 
     # ------------------------------------------------------------------
     # parameters
@@ -407,11 +438,44 @@ class BaseTrainer:
             return self._train_epoch_cached()
         self._init_if_needed()
         losses = []
+        prof = None
         for batch in self.train_loader:
             inputs = self._to_device(self._assemble_inputs(batch))
             ap = self._to_device(np.asarray(batch["ap"], np.float32))
+            if self._profile_dir and prof is None and self.global_step > 2:
+                prof = self._start_profiler()
+                profile_until = self.global_step + self._profile_steps
             losses.append(self._step(inputs, ap, inputs.shape[0]))
+            if prof is not None and self.global_step >= profile_until:
+                self._stop_profiler(prof, losses[-1])
+                prof = None
+        if prof is not None:   # epoch shorter than the profile window
+            self._stop_profiler(prof, losses[-1])
         return self._epoch_result(losses)
+
+    def _start_profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        self._profile_from = self.global_step
+        return prof
+
+    def _stop_profiler(self, prof, last_loss: torch.Tensor) -> None:
+        """Wait for the traced steps, stop, and write the chrome trace
+        ``trace_steps<from>-<to>.json`` into ``profiling.dir``; the run
+        traces once."""
+        last_loss.item()
+        prof.stop()
+        os.makedirs(self._profile_dir, exist_ok=True)
+        path = os.path.join(self._profile_dir, f"trace_steps"
+                            f"{self._profile_from}-{self.global_step}.json")
+        prof.export_chrome_trace(path)
+        self.trace_paths.append(path)
+        self.log.info(f"profiled steps {self._profile_from}-"
+                      f"{self.global_step} into {path}")
+        self._profile_dir = None
 
     def _stage_eval_batch(self, batch):
         self._init_if_needed()
@@ -454,7 +518,8 @@ class BaseTrainer:
         # light path: metrics on the device, two scalars to the host. The
         # full arrays are fetched for the test_results.npy contract and for
         # multi-session grouping.
-        light = phase != "test" and len(split_eids) == 1
+        light = (phase != "test" and len(split_eids) == 1
+                 and not self.config.get("save_plot"))
         session = {e: {"gt": [], "preds": []} for e in split_eids}
         losses, dev_outs, dev_gts = [], [], []
         eval_fn = self.model.head if self._frozen_split else self.model
@@ -538,7 +603,9 @@ class BaseTrainer:
                         if epoch - self._last_best_flush >= self._save_every:
                             self.save_model("best", epoch)
                             self._last_best_flush = epoch
+                        self._plot_figs(eval_res, epoch=epoch)
                 self.log.info(f"{line}")
+                self.tracker.log(line, step=self.global_step)
                 if preempted:
                     # SIGTERM / Ctrl-C: persist the true-resume checkpoint
                     self.save_model("last", epoch)
@@ -557,6 +624,7 @@ class BaseTrainer:
 
         test_res = self.test_model()
         if test_res:
+            self._plot_figs(test_res, test=True)
             test_res["test_res"].update(best_eval_loss=best_loss,
                                         best_eval_bps=best_bps)
             np.save(os.path.join(self.log_dir, "test_results.npy"), test_res)
@@ -574,6 +642,7 @@ class BaseTrainer:
                 "n_params": self.n_params,
                 "features_staged": self._features_staged,
                 "encode_seconds": self.encode_seconds,
+                "trace_paths": list(self.trace_paths),
                 "log_dir": self.log_dir, **extra}
 
     def test_model(self) -> Optional[dict]:
@@ -586,6 +655,37 @@ class BaseTrainer:
             self._set_params(restored["params"])
         return self._run_eval(self.test_loader, self.split["eid"]["test"],
                               "test")
+
+    def _plot_figs(self, eval_results: dict, epoch: int = 0,
+                   test: bool = False) -> None:
+        """``save_plot``: the first session's trial-averaged gt/pred
+        heatmaps and the first 5 neurons' traces, as PNGs beside the
+        checkpoints and as the tracker's figure records."""
+        if not self.config.get("save_plot"):
+            return
+        from video_spike_torch.viz import pyplot
+        from video_spike_torch.viz.plots import plot_gt_pred, plot_neurons_r2
+
+        phase = "test" if test else "eval"
+        tag = "test" if test else str(epoch)
+        gt = eval_results[f"{phase}_gt"][0]
+        preds = eval_results[f"{phase}_preds"][0]
+        fig1 = plot_gt_pred(gt.mean(0).T, preds.mean(0).T, epoch=tag,
+                            modality="ap")
+        fig2 = plot_neurons_r2(gt.mean(0), preds.mean(0),
+                               neuron_idx=range(min(5, gt.shape[-1])),
+                               epoch=tag)
+        p1 = os.path.join(self.log_dir, f"best_trial_{tag}.png")
+        p2 = os.path.join(self.log_dir, f"best_neuron_{tag}.png")
+        fig1.savefig(p1)
+        fig2.savefig(p2)
+        self.tracker.log_figure(f"best_trial_{tag}", fig1,
+                                step=self.global_step, path=p1)
+        self.tracker.log_figure(f"best_neuron_{tag}", fig2,
+                                step=self.global_step, path=p2)
+        plt = pyplot()
+        plt.close(fig1)
+        plt.close(fig2)
 
     # ------------------------------------------------------------------
     # checkpoints

@@ -33,10 +33,12 @@ Counterpart of ``video_spike_tpu/train/contrast.py`` (reference
   on the device once (weakly keyed by loader, capped by
   ``device_cache_gb``).
 
-Checkpoints are written synchronously (``train/checkpoint.py``). Not in
-this slice (ROADMAP.md Queue A item 10): the device mesh, multihost and the
-lr / batch scaling by the data axis (item 14), the ``Tracker`` / wandb and
-asynchronous checkpoint flushes.
+The step's losses (every 50 steps) and each validation go to
+``<log_dir>/metrics.jsonl`` (``core/tracking``, the JAX trainer's keys and
+steps). Checkpoints are written synchronously (``train/checkpoint.py``).
+Not in this slice (ROADMAP.md): the device mesh, multihost and the lr /
+batch scaling by the data axis (item 14), and asynchronous checkpoint
+flushes (item 18).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ import torch
 
 from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
+from video_spike_torch.core.tracking import Tracker
 from video_spike_torch.data.contrast import device_frame_transform
 from video_spike_torch.data.prefetch import background
 from video_spike_torch.ops.contrastive import loss_fn_
@@ -101,6 +104,8 @@ class ContrastTrainer:
         opt = optimizer_config or {}
         self.tx = AdamW(opt.get("lr", 1e-4), weight_decay=opt.get("wd", 0.01),
                         eps=opt.get("eps", 1e-8))
+        self.tracker = Tracker(self.log_dir, project="video-ssl",
+                               name=f"{eid[:5]}_{self.model_name}")
         self._seed = int(seed)
         self._mask_gen = torch.Generator(device=self.device)
         # dedicated stream for the nested-RRR validation subsample, so the
@@ -299,8 +304,10 @@ class ContrastTrainer:
         self.train_losses.extend(vals)
         self._pending_losses = []
         if logs is not None:
-            self.log.info(str({k: float(v) if isinstance(v, torch.Tensor)
-                               else v for k, v in logs.items()}))
+            logs = {k: float(v) if isinstance(v, torch.Tensor) else v
+                    for k, v in logs.items()}
+            self.tracker.log(logs, step=logs["cur_step"])
+            self.log.info(str(logs))
 
     def fit(self) -> float:
         from video_spike_torch.core.preempt import graceful_stop
@@ -355,6 +362,7 @@ class ContrastTrainer:
                 val = self._validate()
                 self.val_history.append({"step": current_step, **val})
                 self.log.info(f"{val}")
+                self.tracker.log(val, step=current_step)
                 if val["val_bps"] > best_bps:
                     best_bps = val["val_bps"]
                     self._best_bps = best_bps

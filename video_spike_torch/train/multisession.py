@@ -20,13 +20,19 @@ reports bits per spike and R² per session over its real neurons only.
   predictions and scores them on the host with ``metrics_list``.
 - Improvements of eval bps stash a device copy of the params; it is written
   to ``model_best.pt`` at the ``save_every`` cadence and at the end.
-  ``model_last.pt`` (params, AdamW state, epoch, step, best bps) is the
+  ``model_last.pt`` (params, optimizer state, epoch, step, best bps) is the
   resume point; SIGTERM / Ctrl-C saves it and returns. ``test_results.npy``
   holds ``test_res`` and ``per_session``.
+- The optimizer is ``ops/optim.make_optimizer``'s, every variant and
+  gradient accumulation included, applied with the plain
+  ``apply_updates`` as in the JAX trainer.
+- Every epoch's line goes to ``<log_dir>/metrics.jsonl``
+  (``core/tracking``); ``save_plot`` fetches the eval and test outputs and
+  writes ``best_{trial,neuron}_<eid5>_<tag>.png`` per session at each new
+  best epoch and for the test split, each also a figure record.
 
-Not in this slice (ROADMAP.md): the device mesh and multihost, the
-``Tracker`` / wandb, figure plotting (``save_plot`` raises) and
-asynchronous checkpoint flushes.
+Not in this slice (ROADMAP.md): the device mesh and multihost (item 14)
+and asynchronous checkpoint flushes (item 18).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import torch
 
 from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
+from video_spike_torch.core.tracking import Tracker
 from video_spike_torch.data.dataset import SessionDataset, split_dataset
 from video_spike_torch.ops.metrics import device_eval_metrics, metrics_list
 from video_spike_torch.ops.optim import apply_updates, make_optimizer
@@ -79,12 +86,13 @@ class MultiSessionTrainer:
         self.sid = {e: i for i, e in enumerate(self.eids)}
         self.log = make_logger(header="[multisession]")
         if config.get("save_plot"):
-            raise NotImplementedError(
-                "save_plot (figures) is not ported yet; see ROADMAP.md "
-                "Queue A item 8 (what the multi-session slice leaves out)")
+            from video_spike_torch.viz import pyplot
+
+            pyplot()   # no matplotlib: fail now, not after training
         self.log_dir = os.path.join(log_dir, "multi_" + "_".join(
             e[:5] for e in self.eids))
         os.makedirs(self.log_dir, exist_ok=True)
+        self.tracker = Tracker(self.log_dir, name="multisession")
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         mods = ["ap", "video", "timestamp"]
@@ -363,6 +371,30 @@ class MultiSessionTrainer:
             out["gt"], out["preds"] = gt_out, pred_out
         return out
 
+    def _plot_figs(self, ev: dict, tag: str) -> None:
+        """``save_plot``: each session's trial-averaged gt/pred heatmaps and
+        first 5 neurons' traces, as PNGs and as figure records."""
+        if not self.config.get("save_plot") or "gt" not in ev:
+            return
+        from video_spike_torch.viz import pyplot
+        from video_spike_torch.viz.plots import plot_gt_pred, plot_neurons_r2
+
+        plt = pyplot()
+        for eid, gt in ev["gt"].items():
+            pr = ev["preds"][eid]
+            fig1 = plot_gt_pred(gt.mean(0).T, pr.mean(0).T, epoch=tag,
+                                modality="ap")
+            fig2 = plot_neurons_r2(gt.mean(0), pr.mean(0),
+                                   neuron_idx=range(min(5, gt.shape[-1])),
+                                   epoch=tag)
+            for fig, kind in ((fig1, "trial"), (fig2, "neuron")):
+                name = f"best_{kind}_{eid[:5]}_{tag}"
+                path = os.path.join(self.log_dir, f"{name}.png")
+                fig.savefig(path)
+                self.tracker.log_figure(name, fig, step=self.global_step,
+                                        path=path)
+                plt.close(fig)
+
     # ------------------------------------------------------------------
     # checkpoints
     # ------------------------------------------------------------------
@@ -404,14 +436,17 @@ class MultiSessionTrainer:
         from video_spike_torch.core.preempt import graceful_stop
 
         num_epochs = self.config.training.num_epochs
+        want_figs = bool(self.config.get("save_plot"))
         t0 = time.time()
         with graceful_stop(self.log) as preempted:
             for epoch in range(self._start_epoch, num_epochs):
                 tr = self.train_epoch()
-                ev = self._eval(self.val_loaders, "eval")
+                ev = self._eval(self.val_loaders, "eval",
+                                return_outputs=want_figs)
                 line = {"epoch": epoch, **tr, "eval_bps": ev["eval_bps"],
                         "eval_rsquared": ev["eval_rsquared"]}
                 self.log.info(f"{line}")
+                self.tracker.log(line, step=self.global_step)
                 self.eval_history.append(line)
                 if ev["eval_bps"] > self._best_bps:
                     self._best_bps = ev["eval_bps"]
@@ -422,6 +457,7 @@ class MultiSessionTrainer:
                     if epoch - self._last_best_flush >= self._save_every:
                         self._flush_best()
                         self._last_best_flush = epoch
+                    self._plot_figs(ev, tag=str(epoch))
                 if preempted:
                     # SIGTERM / Ctrl-C: persist and return, no test eval
                     self._save_last(epoch)
@@ -439,14 +475,17 @@ class MultiSessionTrainer:
             restored = load_checkpoint(self.log_dir, "model_best",
                                        self.device)
             self._set_params(restored["params"])
-        test = self._eval(self.test_loaders, "test")
+        test = self._eval(self.test_loaders, "test",
+                          return_outputs=want_figs)
+        self._plot_figs(test, tag="test")
         np.save(os.path.join(self.log_dir, "test_results.npy"),
                 {"test_res": {"test_bps": test["test_bps"],
                               "test_rsquared": test["test_rsquared"]},
                  "per_session": dict(test["per_session"])})
         self.log.info(f"test: {test['test_bps']} bps, "
                       f"{test['test_rsquared']} r2")
-        return self._result(test)
+        return self._result({k: v for k, v in test.items()
+                             if k not in ("gt", "preds")})
 
     def _result(self, test, **extra) -> dict:
         return {"best_eval_bps": self._best_bps, "test": test,
