@@ -27,7 +27,16 @@ Phases, one JSON line each on stdout:
 3c. linear_accum_path: ``adamw_sr_bf16`` with gradient accumulation 2 for
     2 epochs: the fused readout off (and logged so), 0 launches, the
     checkpoint's MultiSteps counters;
-3d. optim_card_vs_cpu: every new optimizer transform on the Linear model's
+3d. stream_main_path: the production Linear at full width streamed
+    (``device_cache: false``, ``save_every: 1``) from a 160-trial fixture's
+    tar shards through the native C++ reader and the pinned prefetch, 2
+    epochs then ``--resume`` to 3: a launch a step, every train shard read
+    by the native reader, ``model_best.pt`` / ``model_last.pt`` (written in
+    the background) bitwise what they snapshot; then the reader's rate
+    (native against python), the batch's H2D rate (pageable against
+    pinned), the streamed step against the staged one and the step-loop
+    stall of a background ``model_best`` flush against a synchronous save;
+3e. optim_card_vs_cpu: every new optimizer transform on the Linear model's
     non-kernel leaves (the 11,161,600-element decoder head among them), 3
     updates on the card against the CPU within stated bounds, and one
     update timed beside its HBM bound;
@@ -49,7 +58,9 @@ Phases, one JSON line each on stdout:
    ``configs/train/vmae_video.yaml``, batch 128 triplets = 384 frames of
    144×144): a first run stopped mid-epoch at step 20, then
    ``cli.pretrain --resume`` to step 60 with two nested-RRR validations,
-   then ``cli.test --model cm``;
+   then ``cli.test --model cm``; the first run's periodic ``last_model``
+   flush at step 10 runs in the background, and the resume must read a
+   checkpoint whose step matches its sampler sidecar;
 9. ssl_card_vs_cpu: the ContrastViTMAE forward on the card (bf16 and f32)
    against the same weights in f32 on the CPU with the same mask noise, and
    ``device_frame_transform`` on the card against the CPU at 106×160 and
@@ -100,7 +111,7 @@ Phases, one JSON line each on stdout:
     (field and features, each within its bound), timed with CUDA events
     and profiled (launches and device ms a trial);
 21. a ``{"kernels": [...]}`` line (the fused readout runs on the Linear,
-    lean Linear and probe paths; the accumulation, VTT, RRR, SSL,
+    lean Linear, streamed Linear and probe paths; the accumulation, VTT, RRR, SSL,
     pretraining, serving, export, CEBRA and ETL paths must launch it 0
     times);
 22. last line: ``{"ok": true, "device": {...}}``.
@@ -170,6 +181,7 @@ SSL_NEURONS = 668
 SSL_BATCH = 128
 SSL_PARAMS = 111_002_116
 SSL_FIRST_STEPS = 20         # the first run stops mid-epoch (38 batches)
+SSL_FLUSH_EVERY = 10         # a periodic last_model flush, in the background
 SSL_MAX_STEPS = 60           # the resumed run validates at 38 and 60
 SSL_STEPS = 10               # staged steps per timing window
 SSL_CARD_FRAMES = 4          # frames in the card-vs-CPU forward
@@ -610,7 +622,7 @@ def phase_step_time(work: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 3c-3e: the optimizer variants on the full-width Linear model
+# phases 3b, 3c and 3e: the optimizer variants on the full-width Linear model
 # ---------------------------------------------------------------------------
 
 LEAN_OPTIMIZER = {"name": "adafactor_lean", "param_dtype": "bfloat16_sr",
@@ -794,6 +806,304 @@ def phase_linear_accum_path(work: Path) -> dict:
         raise AssertionError(f"accum path metrics: {records}, "
                              f"{res['test_res']}")
     emit("linear_accum_path", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the streaming path (native reader, pinned prefetch, background
+# checkpoint flushes) at full width
+# ---------------------------------------------------------------------------
+
+STREAM_EID = "streameid0"
+STREAM_TRIALS = 160          # 128 train = 8 steps an epoch at batch 16
+STREAM_STALL_STEPS = 20      # staged steps timed with and without a flush
+STREAM_H2D_REPS = 10
+# reckoned figures printed beside the measured ones: the pageable copy rate
+# the serving phase measured (PERF.md section 5; NVIDIA H100 80GB HBM3 at
+# 700 W) and the nominal PCIe Gen5 x16 rate of the H100 SXM's host link,
+# per direction
+PAGEABLE_GB_S = 5.0
+PCIE_GB_S = 64.0
+
+
+def _stream_args(work: Path, train_yaml: Path, log_dir: str) -> list:
+    return ["--model_config", str(ROOT / "configs/model/linear_video.yaml"),
+            "--train_config", str(train_yaml), "--eid", STREAM_EID,
+            "--data_dir", str(work / "stream_data"),
+            "--log_dir", str(work / log_dir),
+            "--batch_size", str(BATCH), "--device", "cuda"]
+
+
+def _assert_bitwise(got, ref, what: str) -> None:
+    import torch
+
+    if isinstance(ref, dict):
+        if got.keys() != ref.keys():
+            raise AssertionError(f"{what}: keys differ")
+        for k in ref:
+            _assert_bitwise(got[k], ref[k], f"{what}/{k}")
+    elif isinstance(ref, torch.Tensor):
+        if got.dtype != ref.dtype or not torch.equal(got.cpu(), ref.cpu()):
+            raise AssertionError(f"{what}: not bitwise equal")
+    elif got != ref:
+        raise AssertionError(f"{what}: {got} != {ref}")
+
+
+def _reader_rate(files, backend: str) -> dict:
+    """One epoch of the train shards through SessionDataset(cache=False)."""
+    from video_spike_torch.data.dataset import SessionDataset
+
+    ds = SessionDataset(files, BATCH, modalities=["ap", "video", "timestamp"],
+                        cache=False, io_backend=backend)
+    t0 = time.perf_counter()
+    n = sum(b["ap"].shape[0] for b in ds)
+    s = time.perf_counter() - t0
+    nbytes = sum(Path(f).stat().st_size for f in files)
+    return {"trials": n, "seconds": s, "trials_per_s": n / s,
+            "mb_per_s": nbytes / s / 1e6, "blobs_read": ds.blobs_read}
+
+
+def _h2d_rates() -> dict:
+    """GB/s of the Linear batch (16 x 1,966,080 uint8 + 16 x 100 x 436 f32)
+    from pageable numpy memory (a synchronous copy, the port's old streamed
+    path) and from a pinned buffer (non_blocking, the prefetch's)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 255, (BATCH, KERNEL_M), dtype=np.uint8)
+    ap = rng.poisson(1.0, (BATCH, 100, N_NEURONS)).astype(np.float32)
+    nbytes = x.nbytes + ap.nbytes
+    dev = torch.device("cuda")
+
+    def pageable():
+        torch.from_numpy(x).to(dev)
+        torch.from_numpy(ap).to(dev)
+
+    px, pap = (torch.from_numpy(x).pin_memory(),
+               torch.from_numpy(ap).pin_memory())
+
+    def pinned():
+        px.to(dev, non_blocking=True)
+        pap.to(dev, non_blocking=True)
+
+    out = {"batch_bytes": nbytes}
+    for name, fn in (("pageable", pageable), ("pinned", pinned),
+                     ("pinned_again", pinned), ("pageable_again", pageable)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STREAM_H2D_REPS):
+            fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / STREAM_H2D_REPS * 1e3
+        out[name] = {"ms": ms, "gb_per_s": nbytes / ms / 1e6}
+    out["reckoned_ms"] = {"pageable": nbytes / PAGEABLE_GB_S / 1e6,
+                          "pinned": nbytes / PCIE_GB_S / 1e6}
+    return out
+
+
+def _producer_ms(trainer) -> dict:
+    """ms a batch of what feeds the streamed step, without the step, over 2
+    epochs from the host cache: the loader alone (collate), then the loader
+    through ``prefetch_to_device`` (assembly, the pinned ring, the copy)."""
+    import torch
+
+    from video_spike_torch.data.prefetch import prefetch_to_device
+
+    out = {}
+    for name, epoch in (
+            ("loader", lambda: trainer.train_loader),
+            ("prefetch", lambda: prefetch_to_device(
+                trainer.train_loader, trainer.device, depth=2,
+                transform=trainer._host_batch))):
+        n = 0
+        t0 = time.perf_counter()
+        for _ in range(2):
+            for _batch in epoch():
+                n += 1
+        torch.cuda.synchronize()
+        out[f"{name}_ms_per_batch"] = (time.perf_counter() - t0) / n * 1e3
+    return out
+
+
+def _flush_stall(work: Path, train_yaml: Path) -> dict:
+    """ms/step of STREAM_STALL_STEPS staged steps (host clock, synchronized
+    each step) without a flush, then with an async ``model_best`` flush in
+    flight, then the seconds of the same save done synchronously."""
+    import numpy as np
+    import torch
+
+    from video_spike_torch.cli import train as train_cli
+    from video_spike_torch.core.cli import get_args
+    from video_spike_torch.train.checkpoint import wait_for_checkpoints
+
+    trainer = train_cli.build_trainer(get_args(
+        _stream_args(work, train_yaml, "stream_stall")))
+    trainer.train_epoch()                         # stages data, warms up
+    X, A = trainer._dev_data
+    rng = np.random.default_rng(0)
+
+    def steps():
+        out = []
+        for _ in range(STREAM_STALL_STEPS):
+            idx = torch.from_numpy(rng.choice(X.shape[0], BATCH,
+                                              replace=False)).cuda()
+            t0 = time.perf_counter()
+            trainer._step(X.index_select(0, idx), A.index_select(0, idx),
+                          BATCH)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    trainer._best_params = {k: v.clone() for k, v in trainer.params.items()}
+    nbytes = sum(v.nbytes for v in trainer._best_params.values())
+    steps()                                       # warm
+    quiet = steps()
+    t0 = time.perf_counter()
+    trainer.save_model("best", 0, block=False)
+    during = steps()
+    handed = time.perf_counter() - t0
+    wait_for_checkpoints()
+    async_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer.save_model("best", 0)
+    sync_s = time.perf_counter() - t0
+    del trainer, X, A
+    _free_card()
+    return {"flush_bytes": nbytes,
+            "quiet_ms": {"median": statistics.median(quiet),
+                         "max": max(quiet)},
+            "during_flush_ms": {"median": statistics.median(during),
+                                "max": max(during)},
+            "steps_inside_flush_seconds": handed,
+            "async_flush_seconds": async_s, "sync_save_seconds": sync_s,
+            "quiet_ms_all": quiet, "during_flush_ms_all": during}
+
+
+def phase_stream_main_path(work: Path, staged_ms: float) -> dict:
+    """``cli.train`` on the full-width Linear in the production
+    configuration, streaming (``device_cache: false``) from tar shards
+    through the native reader and the pinned prefetch, with ``save_every:
+    1`` (background best flushes), 2 epochs then ``--resume`` to 3: a launch
+    a step; the native reader read every train shard; ``model_best.pt``
+    and ``model_last.pt`` bitwise what they snapshot. Then the reader's
+    rate (native against python), the batch's H2D rate (pageable against
+    pinned), the streamed step against the staged one and against what
+    feeds it (the loader, the prefetch without the step), and the
+    step-loop stall of a model_best flush."""
+    import torch
+
+    from video_spike_torch.cli import make_fixture
+    from video_spike_torch.cli import train as train_cli
+    from video_spike_torch.core.cli import get_args
+    from video_spike_torch.ops import fused_readout as fr
+    from video_spike_torch.train.checkpoint import load_checkpoint, to_cpu
+
+    _free_card()
+    t_phase = time.perf_counter()
+    make_fixture.main(["--out", str(work / "stream_data"), "--eid",
+                       STREAM_EID, "--n_trials", str(STREAM_TRIALS),
+                       "--n_neurons", str(N_NEURONS),
+                       "--height", str(HEIGHT), "--width", str(WIDTH)])
+    fixture_s = time.perf_counter() - t_phase
+    train_yaml = _variant_yaml(work, "stream", PRODUCTION_OPTIMIZER,
+                               {"device_cache": False, "save_every": 1})
+    args = _stream_args(work, train_yaml, "stream_logs")
+    trainer = train_cli.build_trainer(get_args(args + ["--num_epochs", "2"]))
+    live = {}
+    test_model = trainer.test_model
+
+    def capture_then_test():
+        # what model_last snapshots: the live tensors after the last step
+        live["params"] = to_cpu(trainer.params)
+        live["opt_state"] = to_cpu(trainer._opt_state_tree())
+        return test_model()
+
+    trainer.test_model = capture_then_test
+    torch.cuda.reset_peak_memory_stats()
+    fr.apply_scaled_outer.launches = 0
+    t0 = time.perf_counter()
+    res = trainer.train()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = fr.apply_scaled_outer.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = res["global_step"]
+    loader = trainer.train_loader
+    n_train = loader.num_trials
+    read = dict(loader.blobs_read)
+    all_cached = set(loader.files) <= set(loader._cache)
+    log_dir = Path(res["log_dir"])
+    best = load_checkpoint(log_dir, "model_best")
+    _assert_bitwise(best["params"], trainer._best_params, "model_best")
+    last = load_checkpoint(log_dir, "model_last")
+    _assert_bitwise(last["params"], live["params"], "model_last params")
+    _assert_bitwise(last["opt_state"], live["opt_state"],
+                    "model_last opt_state")
+    split = dict(trainer.split)
+    del trainer, best, last, live, loader
+    _free_card()
+    if not res["fused_readout"] or steps != 2 * (n_train // BATCH) \
+            or launches != steps:
+        raise AssertionError(f"stream path: {launches} launches, {steps} "
+                             f"steps, fused {res['fused_readout']}")
+    if read["python"] or read["native"] < n_train or not all_cached:
+        raise AssertionError(f"the native reader did not read every train "
+                             f"shard: {read}, all cached {all_cached}")
+    if not (all(map(math.isfinite, res["train_losses"]))
+            and math.isfinite(res["best_eval_bps"])
+            and all(math.isfinite(v) for v in res["test_res"].values())):
+        raise AssertionError(f"stream path results not finite: {res}")
+
+    fr.apply_scaled_outer.launches = 0
+    res2 = train_cli.main(args + ["--num_epochs", "3", "--resume"])
+    torch.cuda.synchronize()
+    resume_launches = fr.apply_scaled_outer.launches
+    resume_steps = res2["global_step"] - steps
+    if res2["start_epoch"] != 2 or resume_steps != n_train // BATCH \
+            or resume_launches != resume_steps:
+        raise AssertionError(f"stream resume: start_epoch "
+                             f"{res2['start_epoch']}, steps {steps}->"
+                             f"{res2['global_step']}, launches "
+                             f"{resume_launches}")
+    _free_card()
+
+    # the reader: native against python, one epoch each, no cache
+    readers = {b: _reader_rate(split["train"], b)
+               for b in ("native", "python")}
+    h2d = _h2d_rates()
+    # the streamed step: 2 epochs through the prefetch (the host cache
+    # serves the shards), host clock; against the staged step of step_time
+    trainer = train_cli.build_trainer(get_args(args + ["--num_epochs", "3"]))
+    trainer.train_epoch()                         # reads, warms up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step0 = trainer.global_step
+    for _ in range(2):
+        trainer.train_epoch()
+    torch.cuda.synchronize()
+    streamed_ms = (time.perf_counter() - t0) / (trainer.global_step
+                                                - step0) * 1e3
+    producer = _producer_ms(trainer)
+    del trainer
+    _free_card()
+    stall = _flush_stall(work, _variant_yaml(work, "stream_staged",
+                                             PRODUCTION_OPTIMIZER))
+    out = {"trials": STREAM_TRIALS, "train_trials": n_train,
+           "fixture_seconds": fixture_s, "train_steps": steps,
+           "launches": launches, "resume_steps": resume_steps,
+           "resume_launches": resume_launches, "blobs_read": read,
+           "train_losses": res["train_losses"] + res2["train_losses"],
+           "best_eval_bps": res["best_eval_bps"], "test": res["test_res"],
+           "run_seconds": run_s, "peak_mem_gb": peak_gb,
+           "checkpoints_bitwise": True, "reader": readers,
+           "reader_needed_trials_per_s": BATCH / (staged_ms / 1e3),
+           "h2d": h2d, "streamed_ms_per_step": streamed_ms,
+           "staged_ms_per_step": staged_ms, "producer": producer,
+           "flush_stall": stall}
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit("stream_main_path", **out)
     return out
 
 
@@ -1348,8 +1658,10 @@ def phase_ssl_main_path(work: Path) -> tuple:
     with contextlib.chdir(run):
         _, trainer, _, _ = pretrain.build_trainer(args, data)
         trainer.max_steps = SSL_FIRST_STEPS
+        trainer._save_every_steps = SSL_FLUSH_EVERY
         t0 = time.perf_counter()
-        trainer.fit()
+        with _LogLines() as first_log:
+            trainer.fit()
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         first = {"n_params": trainer.n_params,
@@ -1359,8 +1671,14 @@ def phase_ssl_main_path(work: Path) -> tuple:
         log_dir = Path(trainer.log_dir)
         del trainer
         _free_card()
+        flushes = [l for l in first_log.lines if "periodic last_model" in l]
+        sidecar = json.loads((log_dir / "last_model.sampler.json")
+                             .read_text())
+        ckpt_step = torch.load(log_dir / "last_model.pt",
+                               weights_only=True)["step"]
         t0 = time.perf_counter()
-        res = pretrain.main(args + ["--resume"], data=data)
+        with _LogLines() as resume_log:
+            res = pretrain.main(args + ["--resume"], data=data)
         torch.cuda.synchronize()
         resumed_s = time.perf_counter() - t0
         (log_dir.parent / "40000").symlink_to(log_dir)
@@ -1387,7 +1705,11 @@ def phase_ssl_main_path(work: Path) -> tuple:
            "artifacts": artifacts, "first_run_seconds": first_s,
            "resumed_run_seconds": resumed_s, "peak_mem_gb": peak_gb,
            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-           "fused_readout_launches": launches}
+           "fused_readout_launches": launches,
+           "background_flushes": flushes, "sidecar_step": sidecar["step"],
+           "checkpoint_step": ckpt_step,
+           "resume_mid_epoch": [l for l in resume_log.lines
+                                if "sampler resumed mid-epoch" in l]}
     emit("ssl_main_path", **out)
     if first["n_params"] != SSL_PARAMS:
         raise AssertionError(f"ContrastViTMAE has {first['n_params']} "
@@ -1410,6 +1732,13 @@ def phase_ssl_main_path(work: Path) -> tuple:
         raise AssertionError(f"cli.test bps: {test_bps}")
     if launches or out["allow_tf32"]:
         raise AssertionError("fused readout launched or TF32 on")
+    if len(flushes) != SSL_FIRST_STEPS // SSL_FLUSH_EVERY - 1 \
+            or sidecar["step"] != ckpt_step or ckpt_step != SSL_FIRST_STEPS \
+            or not out["resume_mid_epoch"]:
+        raise AssertionError(
+            f"SSL flushes {flushes}; the resume read last_model step "
+            f"{ckpt_step} with a sidecar of step {sidecar['step']}; "
+            f"mid-epoch resume: {out['resume_mid_epoch']}")
     return out, data
 
 
@@ -2384,9 +2713,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="vst_smoke_") as tmp:
         work = Path(tmp)
         main_path = phase_main_path(work)
-        phase_step_time(work)
+        step_time = phase_step_time(work)
         lean = phase_linear_lean_path(work)
         accum = phase_linear_accum_path(work)
+        stream = phase_stream_main_path(work, step_time["ms_per_step"])
         phase_optim_card_vs_cpu()
         phase_vtt_main_path(work)
         phase_vtt_card_vs_cpu()
@@ -2410,13 +2740,15 @@ def main() -> int:
         etl = phase_etl_main_path(work)
     # launches on the paths that run the kernel (every other path: 0)
     kernel["launches"] = (main_path["launches"] + lean["launches"]
-                          + probe["launches"])
+                          + stream["launches"] + probe["launches"])
     kernel["launches_by_path"] = {
         "linear": main_path["launches"],
         "linear_resume": main_path["resume_steps"],
         "linear_lean": lean["launches"],
         "linear_lean_resume": lean["resume_launches"],
         "linear_accum": accum["launches"],
+        "stream": stream["launches"],
+        "stream_resume": stream["resume_launches"],
         "probe": probe["launches"], "probe_resume": probe["resume_launches"],
         "serve": serve["fused_readout_launches"]
         + vtt_serve["fused_readout_launches"],

@@ -13,7 +13,8 @@ Tolerances: bitwise on exact-sum inputs (small integers times powers of two,
 so every f32 rank-B sum is exact in any order); on random inputs >= 99.9%
 bitwise and every element within 1 bf16 ulp plus the f32 error bound of
 the rank-B sum (the kernel's summation order may differ from torch's
-matmul, which can flip a rounding).
+matmul, which can flip a rounding). The host I/O's card paths (the pinned
+prefetch, the background fetch) are held bitwise against the CPU path.
 """
 
 import numpy as np
@@ -102,3 +103,54 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         tfr.apply_scaled_outer(w.t(), xa, dzc, 0)
     assert tfr.apply_scaled_outer.launches == before
+
+
+# ---------------------------------------------------------------------------
+# host I/O on the card: the pinned prefetch and the background fetch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_pinned_prefetch_matches_the_cpu_path(cuda_device):
+    """prefetch_to_device on the card (pinned ring of depth + 1 slots, copy
+    stream, events) yields the CPU path's batches, in order, bitwise, with
+    more batches than slots so every slot is refilled."""
+    from video_spike_torch.data.prefetch import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    batches = [{"inputs": rng.integers(0, 255, (4, 120 * 32 * 32),
+                                       dtype=np.uint8),
+                "ap": rng.poisson(1.0, (4, 100, 7)).astype(np.float32),
+                "eid": ["e"] * 4} for _ in range(9)]
+    got = list(prefetch_to_device(iter(batches), cuda_device, depth=2))
+    ref = list(prefetch_to_device(iter(batches), "cpu", depth=2))
+    assert len(got) == len(ref) == 9
+    for g, r in zip(got, ref):
+        assert g["inputs"].is_cuda and g["inputs"].dtype == torch.uint8
+        assert g["eid"] == r["eid"]
+        for k in ("inputs", "ap"):
+            assert torch.equal(g[k].cpu(), r[k]), k
+
+
+@pytest.mark.gpu
+def test_background_fetch_sees_queued_kernels(cuda_device, tmp_path):
+    """save_checkpoint_async of a tensor whose write is still queued on the
+    compute stream saves the written values (the side stream waits on the
+    event recorded at the call), and parallel_device_get equals .cpu()."""
+    from video_spike_torch.train import checkpoint as ck
+
+    x = torch.zeros(1 << 24, device=cuda_device)
+    big = torch.randn(4096, 4096, device=cuda_device)
+    for _ in range(20):                   # keep the stream busy
+        big = big @ big / 64.0
+    x.add_(3.0)
+    ck.save_checkpoint_async(tmp_path, "model_best",
+                             {"params": {"x": x}, "epoch": 1})
+    assert ck.wait_for_checkpoints() is True
+    got = ck.load_checkpoint(tmp_path, "model_best")
+    assert got["epoch"] == 1 and torch.all(got["params"]["x"] == 3.0)
+    tree = {"a": torch.randn(300, 7, device=cuda_device).to(torch.bfloat16),
+            "b": [torch.arange(5, device=cuda_device)], "n": 2}
+    fetched = ck.parallel_device_get(tree)
+    assert fetched["n"] == 2 and not fetched["a"].is_cuda
+    assert torch.equal(fetched["a"], tree["a"].cpu())
+    assert torch.equal(fetched["b"][0], tree["b"][0].cpu())

@@ -12,24 +12,38 @@ Capability parity with the reference loader stack:
   to size the model (input_dim = concatenated flattened input modalities,
   output_dim = T_bins * n_neurons).
 
-Batches are numpy and the trainer moves them to the device; decode fans out
-over a thread pool (the JAX package's native C++ shard reader is not ported
-yet); decoded trials are memoized per path (unbounded — IBL trials are ~2 MB,
-so a session's worth fits comfortably in host RAM) because they are re-read
-every epoch.
+Batches are numpy; the trainers move them to the device
+(``data/prefetch.prefetch_to_device`` on the streaming path). Uncached
+shards stream through the C++ reader (``data/native_io.py``, its threads
+read whole tars off the GIL in order) and a thread pool parses them ahead
+of consumption; ``io_backend="python"`` (or ``"auto"`` where the reader does
+not build) decodes on the pool from the paths instead. Decoded trials are
+memoized per path (unbounded — IBL trials are ~2 MB, so a session's worth
+fits comfortably in host RAM) because they are re-read every epoch.
 """
 
 from __future__ import annotations
 
 import os
 import random
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from video_spike_torch.core.logging import logging as make_logger
 from video_spike_torch.data.tar_io import read_trial_tar
+
+_BACKENDS_LOGGED: set = set()
+
+
+def _log_backend_once(backend: str, why: str = "") -> None:
+    if backend not in _BACKENDS_LOGGED:
+        _BACKENDS_LOGGED.add(backend)
+        make_logger(header="[data]").info(
+            f"trial shards read by the {backend} reader{why}")
 
 
 def get_eids_from_filenames(filenames: Sequence[str]) -> List[str]:
@@ -85,7 +99,10 @@ class SessionDataset:
                  shuffle: bool = False, seed: int = 0,
                  modalities: Optional[Sequence[str]] = None,
                  cache: bool = True, num_workers: int = 8,
-                 drop_last: bool = False):
+                 drop_last: bool = False, io_backend: str = "auto"):
+        if io_backend not in ("auto", "native", "python"):
+            raise ValueError(f"io_backend {io_backend!r} (auto, native or "
+                             f"python)")
         self.files = list(files)
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -94,8 +111,13 @@ class SessionDataset:
         self.cache = cache
         self.num_workers = num_workers
         self.drop_last = drop_last
+        self.io_backend = io_backend
         self._cache: Dict[str, dict] = {}
         self._epoch = 0
+        self._native_reader = None
+        # shards decoded by each backend (cache hits not counted)
+        self.blobs_read = {"native": 0, "python": 0}
+        self._count_lock = threading.Lock()
 
     def __len__(self) -> int:
         n = len(self.files)
@@ -111,6 +133,8 @@ class SessionDataset:
         if self.cache and path in self._cache:
             return self._cache[path]
         sample = read_trial_tar(path)
+        with self._count_lock:          # _load runs on the pool's threads
+            self.blobs_read["python"] += 1
         sample = self._select(sample)
         if self.cache:
             self._cache[path] = sample
@@ -130,10 +154,77 @@ class SessionDataset:
                 out[k] = v
         return out
 
+    def _native_stream(self, uncached):
+        """An iterator of (path, blob) over `uncached` from the persistent
+        reader (reset each epoch), or None where ``auto`` takes the python
+        reader: the library does not build, or the reader fails to start.
+        Under ``native`` both raise."""
+        from video_spike_torch.data.native_io import (
+            NativeShardReader, build_error, native_available)
+
+        if self.io_backend == "auto" and not native_available():
+            _log_backend_once("python", f" (the native reader did not "
+                                        f"build: {build_error()})")
+            return None
+        try:
+            if self._native_reader is None:
+                self._native_reader = NativeShardReader(
+                    uncached, n_workers=self.num_workers)
+            else:
+                self._native_reader.reset(uncached)
+        except Exception:
+            if self.io_backend == "native":
+                raise
+            _log_backend_once("python", " (the native reader failed to "
+                                        "start)")
+            return None
+        _log_backend_once("native")
+        return iter(self._native_reader)
+
     def _iter_samples(self, order) -> Iterator[dict]:
-        """Yield decoded samples following `order`."""
+        """Yield decoded samples following `order`, streaming uncached
+        shards through the native reader unless ``io_backend`` is python."""
+        uncached = ([p for p in order if p not in self._cache]
+                    if self.cache else list(order))
+        native_gen = None
+        if self.io_backend != "python" and uncached:
+            native_gen = self._native_stream(uncached)
+        elif self.io_backend == "python":
+            _log_backend_once("python")
+        if native_gen is None:
+            with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+                yield from pool.map(self._load, order)
+            return
+        from video_spike_torch.data.native_io import parse_tar_blob
+
+        select = self._select
+        # C++ threads stream blobs; a Python pool parses them (pickle + tar
+        # headers) ahead of consumption, results yielded in order
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-            yield from pool.map(self._load, order)
+            pending: list = []
+            depth = max(2 * self.num_workers, 4)
+
+            def emit(fut, path):
+                sample = fut.result()
+                if self.cache:
+                    self._cache[path] = sample
+                return sample
+
+            for path in order:
+                if self.cache and path in self._cache:
+                    pending.append((None, path))
+                else:
+                    blob_path, blob = next(native_gen)
+                    assert blob_path == path, (blob_path, path)
+                    self.blobs_read["native"] += 1
+                    pending.append(
+                        (pool.submit(lambda b: select(parse_tar_blob(b)),
+                                     blob), path))
+                while len(pending) > depth:
+                    fut, p = pending.pop(0)
+                    yield self._cache[p] if fut is None else emit(fut, p)
+            for fut, p in pending:
+                yield self._cache[p] if fut is None else emit(fut, p)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = list(self.files)

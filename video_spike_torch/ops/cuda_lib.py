@@ -6,6 +6,9 @@ Each ``csrc/*.cu`` source exposes a plain C interface. It is compiled by
 Builds go to ``csrc/build/`` (git-ignored) at first use, named by a hash of
 the source and flags, so an edited source is never served a stale library.
 Several sources build in parallel, one ``nvcc`` process each.
+``build_host`` builds a host C++ library (the shard reader,
+``native/trialtar.cpp``) with ``g++`` into the same directory, by the same
+naming.
 
 Nothing here runs at import: the CPU tests import every module of the port
 on a host with no ``nvcc``.
@@ -93,3 +96,30 @@ def load(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(source)))
         _LOADED[source] = lib
     return lib
+
+
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
+
+
+def build_host(src: Path) -> Path:
+    """Compile the host C++ source `src` (any path; it is read, never
+    copied or edited) with ``g++`` into ``csrc/build/``, named by a hash of
+    the source and flags and written through a temporary file, so parallel
+    processes never see a partial library. Returns the library's path;
+    raises with the compiler's output when the build fails."""
+    src = Path(src)
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.run(["g++", *GXX_FLAGS, str(src), "-o", str(tmp)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {src} (rc {proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out

@@ -11,7 +11,10 @@ Counterpart of ``video_spike_tpu/train/base.py:BaseTrainer`` on one device
 - the training set is staged on the device once (``training.device_cache``,
   capped at ``device_cache_gb``); each step gathers its batch there, the
   ragged last batch is padded by repeating indices, and a dataset over the
-  cap streams batch by batch instead;
+  cap (or ``device_cache: false``) streams instead: a producer thread reads
+  the shards (the native C++ reader), assembles each batch and copies it to
+  the card through pinned, double-buffered host memory
+  (``data/prefetch.prefetch_to_device``) while the current step runs;
 - every optimizer of ``ops/optim.make_optimizer`` (AdamW, ``mu_dtype``,
   ``adamw_lowmem``, ``adamw_sr_bf16``, optax's adafactor with its options,
   ``adafactor_lean``) and ``optimizer.gradient_accumulation_steps`` (each
@@ -30,8 +33,14 @@ Counterpart of ``video_spike_tpu/train/base.py:BaseTrainer`` on one device
   fills the backbone from a checkpoint first;
 - eval accumulates gt/preds per session and reports nanmean bps + per-trial
   R² (on the device for one session, on the host for the test report);
-- ``model_best`` on best eval bps, ``model_last`` (params + optimizer state
-  + step) at the end, then ``test_results.npy`` from the best params;
+- ``model_best`` on best eval bps, written in the background at the
+  ``save_every`` cadence (the stash is a device copy); at the end the
+  in-flight saves are joined, then ``model_best`` (unless the cadence
+  flush wrote that epoch) and ``model_last`` (params + optimizer state +
+  step, from a device snapshot: the fused step updates the first kernel in
+  place) are written in the background while ``test_model`` runs, and
+  joined before ``test_results.npy`` and the return; SIGTERM / Ctrl-C
+  joins the flushes (a failed one is logged) and saves both synchronously;
 - every epoch's line goes to ``<log_dir>/metrics.jsonl`` (``core/tracking``,
   wandb mirrored under ``wandb.use``); ``save_plot`` writes
   ``best_trial_<tag>.png`` and ``best_neuron_<tag>.png`` at each new best
@@ -40,8 +49,7 @@ Counterpart of ``video_spike_tpu/train/base.py:BaseTrainer`` on one device
   ``torch.profiler`` into ``dir`` (the cached epoch is not traced, as in
   the JAX trainer).
 
-Not in this slice (ROADMAP.md): the device mesh and multihost (item 14)
-and asynchronous checkpoint flushes (item 18).
+Not in this slice (ROADMAP.md): the device mesh and multihost (item 14).
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
 from video_spike_torch.core.tracking import Tracker
 from video_spike_torch.data.dataset import input_modalities
+from video_spike_torch.data.prefetch import prefetch_to_device
 from video_spike_torch.models.videomae import head_apply
 from video_spike_torch.ops import fused_readout as fr
 from video_spike_torch.ops.metrics import device_eval_metrics, metrics_list
@@ -73,6 +82,9 @@ from video_spike_torch.train.checkpoint import (
     checkpoint_exists,
     load_checkpoint,
     save_checkpoint,
+    save_checkpoint_async,
+    snapshot,
+    wait_for_checkpoints,
 )
 
 # leaves at or above this many elements go to the bf16 SR store
@@ -219,6 +231,12 @@ class BaseTrainer:
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _host_batch(self, batch: Dict[str, np.ndarray]) -> dict:
+        """A loader batch as the streamed step's host arrays (runs on the
+        prefetch's producer thread)."""
+        return {"inputs": self._assemble_inputs(batch),
+                "ap": np.asarray(batch["ap"], np.float32)}
 
     # ------------------------------------------------------------------
     # init and steps
@@ -439,9 +457,9 @@ class BaseTrainer:
         self._init_if_needed()
         losses = []
         prof = None
-        for batch in self.train_loader:
-            inputs = self._to_device(self._assemble_inputs(batch))
-            ap = self._to_device(np.asarray(batch["ap"], np.float32))
+        for batch in prefetch_to_device(self.train_loader, self.device,
+                                        depth=2, transform=self._host_batch):
+            inputs, ap = batch["inputs"], batch["ap"]
             if self._profile_dir and prof is None and self.global_step > 2:
                 prof = self._start_profiler()
                 profile_until = self.global_step + self._profile_steps
@@ -601,13 +619,17 @@ class BaseTrainer:
                                              in self.params.items()}
                         self._best_epoch = epoch
                         if epoch - self._last_best_flush >= self._save_every:
-                            self.save_model("best", epoch)
+                            # fetch and write in the background: training
+                            # continues
+                            self.save_model("best", epoch, block=False)
                             self._last_best_flush = epoch
                         self._plot_figs(eval_res, epoch=epoch)
                 self.log.info(f"{line}")
                 self.tracker.log(line, step=self.global_step)
                 if preempted:
-                    # SIGTERM / Ctrl-C: persist the true-resume checkpoint
+                    # SIGTERM / Ctrl-C: persist the true-resume checkpoint;
+                    # a died best flush must not abort that
+                    wait_for_checkpoints(raise_errors=False)
                     self.save_model("last", epoch)
                     if self._best_params is not None:
                         self.save_model("best", self._best_epoch)
@@ -615,14 +637,20 @@ class BaseTrainer:
                                   f"saved, resume with --resume")
                     return self._result(best_bps, best_epoch, None,
                                         preempted=True, epoch=epoch)
+        wait_for_checkpoints()   # don't race the in-flight best flush
+        # the final saves run in the background, overlapped with the test
+        # eval; the best re-save is skipped when the cadence flush already
+        # wrote exactly the best epoch. Both capture their tensors before
+        # test_model swaps the best params in.
         if self._best_params is not None \
                 and self._last_best_flush != self._best_epoch:
-            self.save_model("best", self._best_epoch)
-        self.save_model("last", num_epochs - 1)
+            self.save_model("best", self._best_epoch, block=False)
+        self.save_model("last", num_epochs - 1, block=False)
         self.log.info(f"trained {num_epochs} epochs in {time.time()-t0:.1f}s; "
                       f"best eval_bps={best_bps} @ epoch {best_epoch}")
 
         test_res = self.test_model()
+        wait_for_checkpoints()   # artifacts must exist before returning
         if test_res:
             self._plot_figs(test_res, test=True)
             test_res["test_res"].update(best_eval_loss=best_loss,
@@ -709,9 +737,15 @@ class BaseTrainer:
                                  "this run uses the standard step")
             self.opt_state = tree["tx"]
 
-    def save_model(self, name: str = "last", epoch: int = 0) -> None:
+    def save_model(self, name: str = "last", epoch: int = 0,
+                   block: bool = True) -> None:
         """``model_best`` holds params only; ``model_last`` adds the
-        optimizer state and step counter for a true resume."""
+        optimizer state and step counter for a true resume. ``block=False``
+        runs the device fetch and the write on a background thread
+        (:func:`wait_for_checkpoints` joins it); an async ``last`` first
+        copies the live params and optimizer state on the device, since the
+        next fused step updates the first kernel in place (the best stash
+        is a copy already)."""
         params = (self._best_params
                   if name == "best" and self._best_params is not None
                   else self.params)
@@ -719,10 +753,16 @@ class BaseTrainer:
         if name == "last":
             tree["opt_state"] = self._opt_state_tree()
             tree["global_step"] = self.global_step
-        save_checkpoint(self.log_dir, f"model_{name}", tree)
+        if block:
+            save_checkpoint(self.log_dir, f"model_{name}", tree)
+            return
+        if name == "last":
+            tree = snapshot(tree)
+        save_checkpoint_async(self.log_dir, f"model_{name}", tree)
 
     def resume(self, name: str = "last") -> bool:
         """Restore params + optimizer state + epoch from ``model_last``."""
+        wait_for_checkpoints()
         if not checkpoint_exists(self.log_dir, f"model_{name}"):
             return False
         self._init_if_needed()

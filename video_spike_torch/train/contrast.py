@@ -22,23 +22,24 @@ Counterpart of ``video_spike_tpu/train/contrast.py`` (reference
   subsamples the frame axis with the seeded ``default_rng(seed +
   1_000_003)`` stream, fits a nested RRR model on the embeddings and
   reports ``val_bps``; an improvement stashes a device copy of the params
-  and writes ``best_model.pt`` and ``best_model.meta.json`` at once;
+  and writes ``best_model.pt`` at once in the background, then (only once
+  it landed) ``best_model.meta.json``;
 - ``last_model.pt`` (params, AdamW state, step, best bps) plus the
   ``last_model.sampler.json`` sidecar (epoch-start sampler state, batches
-  consumed, step stamp) is written at the end, on the
-  ``save_every_steps`` / ``save_every_min`` cadence and on SIGTERM /
-  Ctrl-C (``graceful_stop``); ``resume()`` continues mid-epoch on the exact
-  batch stream;
+  consumed, step stamp) is written at the end and on SIGTERM / Ctrl-C
+  (``graceful_stop``), synchronously, after the in-flight flushes are
+  joined; on the ``save_every_steps`` / ``save_every_min`` cadence the
+  params and AdamW state are copied on the device and written in the
+  background, the sidecar after the checkpoint landed; ``resume()`` joins
+  in-flight saves and continues mid-epoch on the exact batch stream;
 - ``transform()`` embeds a trial loader at mask ratio 0, staging its frames
   on the device once (weakly keyed by loader, capped by
   ``device_cache_gb``).
 
 The step's losses (every 50 steps) and each validation go to
 ``<log_dir>/metrics.jsonl`` (``core/tracking``, the JAX trainer's keys and
-steps). Checkpoints are written synchronously (``train/checkpoint.py``).
-Not in this slice (ROADMAP.md): the device mesh, multihost and the lr /
-batch scaling by the data axis (item 14), and asynchronous checkpoint
-flushes (item 18).
+steps). Not in this slice (ROADMAP.md): the device mesh, multihost and the
+lr / batch scaling by the data axis (item 14).
 """
 
 from __future__ import annotations
@@ -64,6 +65,9 @@ from video_spike_torch.train.checkpoint import (
     checkpoint_exists,
     load_checkpoint,
     save_checkpoint,
+    save_checkpoint_async,
+    snapshot,
+    wait_for_checkpoints,
 )
 from video_spike_torch.train.rrr_pipeline import train_rrr
 
@@ -380,9 +384,14 @@ class ContrastTrainer:
         if self._pending_losses:
             self._log_losses(None)
         self._best_bps = best_bps
-        if self._best_params is not None \
-                and self._best_on_disk != self._best_step:
-            self._flush_best_model(self._best_step)
+        # join the background flushes before the final synchronous saves (a
+        # straggling older flush must not land over them); skip the best
+        # re-save when its flush landed, re-save when one died
+        flushed_ok = wait_for_checkpoints(raise_errors=False)
+        if self._best_params is not None and not (
+                flushed_ok and self._best_on_disk == self._best_step):
+            if self._save_model("best_model"):
+                self._write_best_meta(self._best_bps, self._best_step)
         self._save_last(current_step)
         self.log.info(f"Training took: {time.time()-start:.1f} seconds")
         return best_bps
@@ -427,6 +436,9 @@ class ContrastTrainer:
         except OSError as e:
             self.log.error(f"Error saving last_model: {e}")
             return
+        self._write_sidecar(state)
+
+    def _write_sidecar(self, state: Optional[Dict]) -> None:
         try:
             self._write_json("last_model.sampler.json", state)
         except OSError as e:
@@ -443,30 +455,49 @@ class ContrastTrainer:
             time.time() - self._last_save_t >= self._save_every_min * 60)
 
     def _save_last_periodic(self, step: int) -> None:
+        """Mid-run durability flush of last_model and its sidecar: the
+        live params and AdamW state are copied on the device, and the
+        fetch and write run in the background while the step loop goes
+        on; the sidecar (taken now) is written only after the checkpoint
+        landed."""
         self._last_save_t = time.time()
         self._last_save_step = step
-        self.log.info(f"periodic last_model save @ step {step}")
-        self._save_last(step)
+        self.log.info(f"periodic last_model flush @ step {step}")
+        state = self._sidecar_state(step)
+        tree = {"params": snapshot(self.params),
+                "opt_state": snapshot(self.opt_state),
+                "step": step, "best_bps": float(self._best_bps)}
+        save_checkpoint_async(
+            self.log_dir, "last_model", tree,
+            after=lambda: self._write_sidecar(state))
 
     def _flush_best_model(self, step: int) -> None:
-        """Write the stashed best params and then ``best_model.meta.json``
-        (best bps + step). The meta follows the checkpoint, so it can
-        understate a best on disk but never claim one that is not;
-        resume() restores the running best from it."""
-        if self._save_model("best_model"):
+        """Write the stashed best params in the background and then
+        ``best_model.meta.json`` (best bps + step). The meta follows the
+        checkpoint, so it can understate a best on disk but never claim one
+        that is not; resume() restores the running best from it."""
+        bps = self._best_bps
+
+        def landed():
             self._best_on_disk = step
-            try:
-                self._write_json("best_model.meta.json",
-                                 {"best_bps": float(self._best_bps),
-                                  "step": int(step)})
-            except OSError as e:
-                self.log.error(f"Error saving best_model.meta.json: {e}")
+            self._write_best_meta(bps, step)
+
+        save_checkpoint_async(self.log_dir, "best_model",
+                              {"params": self._best_params}, after=landed)
+
+    def _write_best_meta(self, bps: float, step: int) -> None:
+        try:
+            self._write_json("best_model.meta.json",
+                             {"best_bps": float(bps), "step": int(step)})
+        except OSError as e:
+            self.log.error(f"Error saving best_model.meta.json: {e}")
 
     def resume(self, name: str = "last_model") -> bool:
         """Restore params + AdamW state + step from ``last_model`` and
         continue ``fit()`` from there; with the sampler sidecar present the
         data stream resumes mid-epoch bit-exactly (sampler state restored,
         consumed batches fast-forwarded draw for draw)."""
+        wait_for_checkpoints()
         if not checkpoint_exists(self.log_dir, name):
             return False
         self._init_if_needed()
@@ -526,6 +557,7 @@ class ContrastTrainer:
             return False
 
     def _load_model(self, name: str) -> bool:
+        wait_for_checkpoints()
         if not checkpoint_exists(self.log_dir, name):
             self.log.warning(f"Path does not exist: "
                              f"{os.path.join(self.log_dir, name)}.pt")

@@ -19,10 +19,14 @@ reports bits per spike and R² per session over its real neurons only.
   the device and fetches them in one sync. ``return_outputs`` fetches the
   predictions and scores them on the host with ``metrics_list``.
 - Improvements of eval bps stash a device copy of the params; it is written
-  to ``model_best.pt`` at the ``save_every`` cadence and at the end.
-  ``model_last.pt`` (params, optimizer state, epoch, step, best bps) is the
-  resume point; SIGTERM / Ctrl-C saves it and returns. ``test_results.npy``
-  holds ``test_res`` and ``per_session``.
+  to ``model_best.pt`` in the background at the ``save_every`` cadence and
+  at the end. ``model_last.pt`` (params, optimizer state, epoch, step, best
+  bps) is the resume point: written after training in the background,
+  overlapped with the test eval (no step follows to update its tensors),
+  and joined before ``test_results.npy``; SIGTERM / Ctrl-C joins the
+  flushes (a failed one is logged), saves it synchronously and returns.
+  ``test_results.npy`` holds ``test_res`` and ``per_session``. The
+  streaming loop copies each batch synchronously, as in the JAX trainer.
 - The optimizer is ``ops/optim.make_optimizer``'s, every variant and
   gradient accumulation included, applied with the plain
   ``apply_updates`` as in the JAX trainer.
@@ -31,8 +35,7 @@ reports bits per spike and R² per session over its real neurons only.
   writes ``best_{trial,neuron}_<eid5>_<tag>.png`` per session at each new
   best epoch and for the test split, each also a figure record.
 
-Not in this slice (ROADMAP.md): the device mesh and multihost (item 14)
-and asynchronous checkpoint flushes (item 18).
+Not in this slice (ROADMAP.md): the device mesh and multihost (item 14).
 """
 
 from __future__ import annotations
@@ -56,6 +59,8 @@ from video_spike_torch.train.checkpoint import (
     checkpoint_exists,
     load_checkpoint,
     save_checkpoint,
+    save_checkpoint_async,
+    wait_for_checkpoints,
 )
 
 
@@ -398,24 +403,35 @@ class MultiSessionTrainer:
     # ------------------------------------------------------------------
     # checkpoints
     # ------------------------------------------------------------------
-    def _save_last(self, epoch: int) -> None:
-        """True-resume checkpoint: params + optimizer state + counters."""
-        save_checkpoint(self.log_dir, "model_last", {
-            "params": self.params, "opt_state": self.opt_state,
-            "epoch": epoch, "global_step": self.global_step,
-            "best_bps": float(self._best_bps)})
+    def _save_last(self, epoch: int, block: bool = True) -> None:
+        """True-resume checkpoint: params + optimizer state + counters.
+        ``block=False`` (after training only: no step follows to replace
+        these tensors) fetches and writes on a background thread,
+        overlapped with the test eval."""
+        tree = {"params": self.params, "opt_state": self.opt_state,
+                "epoch": epoch, "global_step": self.global_step,
+                "best_bps": float(self._best_bps)}
+        if block:
+            save_checkpoint(self.log_dir, "model_last", tree)
+        else:
+            save_checkpoint_async(self.log_dir, "model_last", tree)
 
-    def _flush_best(self) -> None:
-        """Write the stashed best params unless that epoch is on disk."""
+    def _flush_best(self, block: bool = True) -> None:
+        """Write the stashed best params unless that epoch is on disk;
+        ``block=False`` keeps training running while it is fetched and
+        written."""
         if self._best_params is None \
                 or self._last_best_flush == self._best_epoch:
             return
-        save_checkpoint(self.log_dir, "model_best",
-                        {"params": self._best_params,
-                         "epoch": self._best_epoch})
+        tree = {"params": self._best_params, "epoch": self._best_epoch}
+        if block:
+            save_checkpoint(self.log_dir, "model_best", tree)
+        else:
+            save_checkpoint_async(self.log_dir, "model_best", tree)
 
     def resume(self, name: str = "last") -> bool:
         """Restore params + optimizer state + epoch from ``model_last``."""
+        wait_for_checkpoints()
         if not checkpoint_exists(self.log_dir, f"model_{name}"):
             return False
         self._init_if_needed()
@@ -455,18 +471,21 @@ class MultiSessionTrainer:
                                          in self.params.items()}
                     self._best_epoch = epoch
                     if epoch - self._last_best_flush >= self._save_every:
-                        self._flush_best()
+                        self._flush_best(block=False)
                         self._last_best_flush = epoch
                     self._plot_figs(ev, tag=str(epoch))
                 if preempted:
                     # SIGTERM / Ctrl-C: persist and return, no test eval
+                    wait_for_checkpoints(raise_errors=False)
                     self._save_last(epoch)
                     self._flush_best()
                     self.log.info(f"preempted at epoch {epoch}: model_last "
                                   f"saved, resume with --resume")
                     return self._result(None, preempted=True, epoch=epoch)
-            self._save_last(num_epochs - 1)
-        self._flush_best()
+            # after the loop: the fetch and write overlap the test eval;
+            # same-path saves join, and the trainer waits before returning
+            self._save_last(num_epochs - 1, block=False)
+        self._flush_best(block=False)
         self.log.info(f"trained in {time.time()-t0:.1f}s; "
                       f"best eval_bps={self._best_bps}")
         if self._best_params is not None:
@@ -477,6 +496,7 @@ class MultiSessionTrainer:
             self._set_params(restored["params"])
         test = self._eval(self.test_loaders, "test",
                           return_outputs=want_figs)
+        wait_for_checkpoints()   # artifacts must exist before returning
         self._plot_figs(test, tag="test")
         np.save(os.path.join(self.log_dir, "test_results.npy"),
                 {"test_res": {"test_bps": test["test_bps"],
