@@ -36,6 +36,17 @@ Phases, one JSON line each on stdout:
     (native against python), the batch's H2D rate (pageable against
     pinned), the streamed step against the staged one and the step-loop
     stall of a background ``model_best`` flush against a synchronous save;
+3f. dist_main_path: ``cli.train`` across processes under
+    ``torch.distributed.run``: (a) 2 gloo ranks sharing the card, the
+    full-width Linear at local batch 8 (global 16), 2 epochs then
+    ``--resume`` to 3: identical losses on both ranks, W checksums equal
+    every epoch, rank 0 the only writer, a launch a step on each rank
+    (the fused step gathers the ranks' rank-B factors), staged ms/step,
+    and one 2-rank step against the one-rank step on the same 16 rows;
+    (b) NCCL at world 1 through the same CLI: losses and W equal to the
+    non-distributed run's; (c) the Linear ``model_best`` served with the
+    first kernel's rows split over 2 gloo ranks against the one-rank
+    session;
 3e. optim_card_vs_cpu: every new optimizer transform on the Linear model's
     non-kernel leaves (the 11,161,600-element decoder head among them), 3
     updates on the card against the CPU within stated bounds, and one
@@ -111,7 +122,7 @@ Phases, one JSON line each on stdout:
     (field and features, each within its bound), timed with CUDA events
     and profiled (launches and device ms a trial);
 21. a ``{"kernels": [...]}`` line (the fused readout runs on the Linear,
-    lean Linear, streamed Linear and probe paths; the accumulation, VTT, RRR, SSL,
+    lean Linear, streamed Linear, data-parallel Linear and probe paths; the accumulation, VTT, RRR, SSL,
     pretraining, serving, export, CEBRA and ETL paths must launch it 0
     times);
 22. last line: ``{"ok": true, "device": {...}}``.
@@ -1104,6 +1115,389 @@ def phase_stream_main_path(work: Path, staged_ms: float) -> dict:
            "flush_stall": stall}
     out["phase_seconds"] = time.perf_counter() - t_phase
     emit("stream_main_path", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: data parallel across processes (torch.distributed)
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2                  # gloo ranks sharing the one card
+DP_TIMED_EPOCHS = 5           # staged epochs a timing window (2 steps each)
+DP_LAUNCH_TIMEOUT = 420
+DP_LOSS_RTOL = 1e-3           # the 2-rank step's loss against one rank's
+DP_SERVE_BUCKETS = (1, 2, 4, 8)
+DP_SERVE_ROWS = (3, 8)
+
+_CHILD_TIMING = r"""
+def staged_ms(trainer, windows, epochs, barrier=None):
+    trainer.train_epoch()                       # stages the trials, warms
+    ms = []
+    for _ in range(windows):
+        if barrier:
+            barrier()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        s0 = trainer.global_step
+        start.record()
+        for _ in range(epochs):
+            trainer.train_epoch()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end) / (trainer.global_step - s0))
+    return ms
+"""
+
+# every rank: cli.train 2 epochs, --resume to 3, staged ms/step, then one
+# 2-rank step (this rank's rows, the factors gathered) against the one-rank
+# fused step on all 16 rows, from the same params, in the same process
+DP_TRAIN_CHILD = r"""
+import json, sys, time
+import torch
+import torch.distributed as dist
+from video_spike_torch.cli import train as train_cli
+from video_spike_torch.core.cli import get_args
+from video_spike_torch.ops import fused_readout as fr
+from video_spike_torch.parallel import multihost as mh
+""" + _CHILD_TIMING + r"""
+cfg = json.loads(sys.argv[1])
+fr.apply_scaled_outer.launches = 0
+res = train_cli.main(cfg["argv"] + ["--num_epochs", "2"])
+launches = fr.apply_scaled_outer.launches
+fr.apply_scaled_outer.launches = 0
+res2 = train_cli.main(cfg["argv"] + ["--num_epochs", "3", "--resume"])
+resume_launches = fr.apply_scaled_outer.launches
+rank, world = mh.process_index(), mh.process_count()
+trainer = train_cli.build_trainer(get_args(cfg["timing_argv"]))
+ms = staged_ms(trainer, cfg["windows"], cfg["epochs"], dist.barrier)
+
+p0 = {k: v.clone() for k, v in trainer.params.items()}
+g = torch.Generator(device="cuda").manual_seed(1234)
+rows, b = cfg["batch"], cfg["batch"] // world
+
+# the factor gather alone: this rank's (b, M) bf16 rows (host clock; gloo
+# returns once the rows are in place)
+flat = torch.zeros((b, p0[fr.FIRST_KERNEL].shape[0]), dtype=torch.bfloat16,
+                   device="cuda")
+gather_ms = []
+for i in range(6):
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mh.gather_rows(flat, dist.group.WORLD)
+    torch.cuda.synchronize()
+    if i:
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
+del flat
+x = torch.randint(0, 256, (rows, p0[fr.FIRST_KERNEL].shape[0]), generator=g,
+                  device="cuda", dtype=torch.uint8)
+ap = torch.poisson(torch.full((rows, 100, cfg["neurons"]), 0.5,
+                              device="cuda"), generator=g)
+one_step = fr.make_fused_linear_step(trainer.model, trainer.tx,
+                                     trainer.schedule, trainer.criterion,
+                                     trainer._apply_updates)
+
+
+def start():
+    p = {k: v.clone() for k, v in p0.items()}
+    return p, fr.init_fused_opt_state(p, trainer.tx)
+
+
+p_dp, _, loss_dp = trainer._step_fn(*start(), x[rank * b:(rank + 1) * b],
+                                    ap[rank * b:(rank + 1) * b], rows, 0)
+p_1, _, loss_1 = one_step(*start(), x, ap, rows, 0)
+w_dp, w_1 = p_dp[fr.FIRST_KERNEL], p_1[fr.FIRST_KERNEL]
+a32, b32 = w_dp.float(), w_1.float()
+ulp = torch.exp2(torch.floor(torch.log2(
+    torch.maximum(a32.abs(), b32.abs()).clamp_min(1e-38))) - 7)
+same_rows = {
+    "loss_dp": float(loss_dp), "loss_one_rank": float(loss_1),
+    "w_frac_bitwise": float((w_dp.view(torch.int16)
+                             == w_1.view(torch.int16)).float().mean()),
+    "w_outside_1ulp": int(((a32 - b32).abs() > ulp).sum()),
+    "w_checksums": mh.replica_checksums({"w": w_dp}, dist.group.WORLD)}
+out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+       "train_losses": res["train_losses"], "steps": res["global_step"],
+       "launches": launches, "replica_checksums": res["replica_checksums"],
+       "resume_start_epoch": res2["start_epoch"],
+       "resume_steps": res2["global_step"] - res["global_step"],
+       "resume_launches": resume_launches,
+       "resume_replica_checksums": res2["replica_checksums"],
+       "test": res["test_res"], "log_dir": res["log_dir"],
+       "ms_per_step_windows": ms, "gather_ms": gather_ms,
+       "same_rows": same_rows}
+with open(f"{cfg['out']}{rank}.json", "w") as f:
+    json.dump(out, f)
+"""
+
+# one rank under NCCL: cli.train 2 epochs, NCCL's collectives on the card,
+# staged ms/step
+DP_NCCL_CHILD = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+from video_spike_torch.cli import train as train_cli
+from video_spike_torch.core.cli import get_args
+from video_spike_torch.ops import fused_readout as fr
+""" + _CHILD_TIMING + r"""
+cfg = json.loads(sys.argv[1])
+fr.apply_scaled_outer.launches = 0
+res = train_cli.main(cfg["argv"] + ["--num_epochs", "2"])
+launches = fr.apply_scaled_outer.launches
+t = torch.arange(4.0, device="cuda")
+dist.all_reduce(t)
+parts = [torch.empty_like(t)]
+dist.all_gather(parts, t)
+dist.barrier()
+trainer = train_cli.build_trainer(get_args(cfg["timing_argv"]))
+ms = staged_ms(trainer, cfg["windows"], cfg["epochs"])
+out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+       "collectives_ok": bool(torch.equal(parts[0], torch.arange(
+           4.0, device="cuda"))),
+       "train_losses": res["train_losses"], "steps": res["global_step"],
+       "launches": launches, "log_dir": res["log_dir"],
+       "ms_per_step_windows": ms}
+with open(f"{cfg['out']}0.json", "w") as f:
+    json.dump(out, f)
+"""
+
+# every rank: the Linear model_best served with the first kernel's rows
+# split over the model axis of a {data: 1, model: 2} mesh
+DP_SERVE_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.models.linear import first_layer_sharding_rules
+from video_spike_torch.ops import fused_readout as fr
+from video_spike_torch.parallel import multihost as mh
+from video_spike_torch.parallel.mesh import make_mesh
+from video_spike_torch.serve.session import InferenceSession
+
+cfg = json.loads(sys.argv[1])
+assert setup_runtime("cuda")
+session = InferenceSession.from_checkpoint(
+    cfg["model_config"], cfg["ckpt_dir"], bucket_sizes=cfg["buckets"],
+    device="cuda", mesh=make_mesh(n_data=1, n_model=mh.process_count()),
+    sharding_rules=first_layer_sharding_rules)
+rows = np.load(cfg["rows"])
+outs = {str(n): session.predict(rows[:n]) for n in cfg["sizes"]}
+np.savez(f"{cfg['out']}{mh.process_index()}.npz",
+         kernel_rows=session.params[fr.FIRST_KERNEL].shape[0],
+         launches=fr.apply_scaled_outer.launches, **outs)
+"""
+
+
+def _torchrun(code: str, nproc: int, cfg: dict, env: dict = None) -> float:
+    """``python -m torch.distributed.run --standalone`` with `nproc` ranks
+    running `code` on ``json.dumps(cfg)``; raises with the output's tail on
+    a non-zero exit; returns the wall seconds."""
+    import os
+
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={nproc}", "--no-python", sys.executable, "-c",
+         code, json.dumps(cfg)],
+        env={**os.environ, "PYTHONPATH": str(ROOT), **(env or {})},
+        capture_output=True, text=True, timeout=DP_LAUNCH_TIMEOUT)
+    if p.returncode != 0:
+        raise AssertionError(f"torchrun ({nproc} ranks) failed:\n"
+                             + (p.stdout + p.stderr)[-8000:])
+    return time.perf_counter() - t0
+
+
+def _bf16_w(log_dir: str):
+    from video_spike_torch.ops import fused_readout as fr
+    from video_spike_torch.train.checkpoint import load_checkpoint
+
+    return load_checkpoint(log_dir, "model_last")["params"][fr.FIRST_KERNEL]
+
+
+def phase_dist_main_path(work: Path, staged_ms: float) -> dict:
+    """The production Linear at full width through ``cli.train`` across
+    processes: (a) 2 gloo ranks sharing the card, local batch 8 (global
+    16), 2 epochs then ``--resume`` to 3, every rank's kernel launches equal
+    to its steps, the replicas' W checksums equal every epoch, rank 0 the
+    only writer, staged ms/step, and one 2-rank step against the one-rank
+    step on the same 16 rows; (b) NCCL at world 1 under the launcher,
+    whose losses and W after 2 epochs equal the non-distributed run's;
+    (c) the model-sharded serving session on 2 gloo ranks against the
+    one-rank session."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from video_spike_torch.cli import train as train_cli
+    from video_spike_torch.ops import fused_readout as fr
+    from video_spike_torch.serve.session import InferenceSession
+
+    _free_card()
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    train_yaml = _train_yaml(work)
+
+    def argv(log_dir: str, batch: int) -> list:
+        return ["--model_config", str(ROOT / "configs/model/linear_video.yaml"),
+                "--train_config", str(train_yaml), "--eid", "smokeeid0",
+                "--data_dir", str(work / "data"), "--log_dir",
+                str(work / log_dir), "--batch_size", str(batch),
+                "--device", "cuda"]
+
+    # (a) two gloo ranks on the card
+    local = BATCH // DP_WORLD
+    dp_s = _torchrun(DP_TRAIN_CHILD, DP_WORLD, {
+        "argv": argv("dp_logs", local),
+        "timing_argv": argv("dp_timing", local),
+        "out": str(work / "dp_rank"), "windows": REPS,
+        "epochs": DP_TIMED_EPOCHS, "batch": BATCH, "neurons": N_NEURONS},
+        env={"VST_DIST_BACKEND": "gloo"})
+    ranks = [json.loads((work / f"dp_rank{r}.json").read_text())
+             for r in range(DP_WORLD)]
+    r0 = ranks[0]
+    if any(r["backend"] != "gloo" or r["world"] != DP_WORLD for r in ranks):
+        raise AssertionError(f"not {DP_WORLD} gloo ranks: {ranks}")
+    for key in ("train_losses", "steps", "replica_checksums", "test",
+                "resume_replica_checksums"):
+        if any(r[key] != r0[key] for r in ranks):
+            raise AssertionError(f"ranks differ in {key}: "
+                                 f"{[r[key] for r in ranks]}")
+    if len(r0["replica_checksums"]) != 2 \
+            or len(r0["resume_replica_checksums"]) != 1:
+        raise AssertionError(f"want a W checksum an epoch: {r0}")
+    for r in ranks:
+        if r["launches"] != r["steps"] or r["steps"] == 0 \
+                or r["resume_launches"] != r["resume_steps"] \
+                or r["resume_steps"] == 0 or r["resume_start_epoch"] != 2:
+            raise AssertionError(f"rank {r['rank']}: launches "
+                                 f"{r['launches']} / steps {r['steps']}, "
+                                 f"resume {r['resume_launches']} / "
+                                 f"{r['resume_steps']} from epoch "
+                                 f"{r['resume_start_epoch']}")
+    if not all(math.isfinite(v) for v in r0["train_losses"]):
+        raise AssertionError(f"non-finite loss: {r0['train_losses']}")
+    run_dir = Path(r0["log_dir"])
+    written = sorted(p.name for p in run_dir.iterdir())
+    if written != ["metrics.jsonl", "model_best.pt", "model_last.pt",
+                   "test_results.npy"]:
+        raise AssertionError(f"rank-0 artifacts: {written}")
+    records = _metrics_records(run_dir)
+    if len(records) != 3 or any("replica_checksum" not in rec
+                                for rec in records):
+        raise AssertionError(f"metrics.jsonl: one record an epoch with its "
+                             f"checksum, got {records}")
+    same = [r["same_rows"] for r in ranks]
+    s0 = same[0]
+    if len(set(s0["w_checksums"])) != 1 \
+            or abs(s0["loss_dp"] - s0["loss_one_rank"]) \
+            > DP_LOSS_RTOL * abs(s0["loss_one_rank"]) \
+            or s0["w_frac_bitwise"] < 0.999 or s0["w_outside_1ulp"] \
+            or any(s != s0 for s in same):
+        raise AssertionError(f"2-rank step vs one-rank step on the same "
+                             f"{BATCH} rows: {same}")
+    dp_ms = statistics.median(ms for r in ranks
+                              for ms in r["ms_per_step_windows"])
+    factor_bytes = {   # flat (bf16) and dz (f32) a step
+        "sent_per_rank": local * (KERNEL_M * 2 + KERNEL_N * 4),
+        "gathered_per_rank": BATCH * (KERNEL_M * 2 + KERNEL_N * 4)}
+
+    # (b) NCCL at world 1 through the same CLI, against the non-distributed
+    # run (in this process, twice if the first is not bitwise)
+    nccl_s = _torchrun(DP_NCCL_CHILD, 1, {
+        "argv": argv("nccl_logs", BATCH),
+        "timing_argv": argv("nccl_timing", BATCH),
+        "out": str(work / "nccl_rank"), "windows": REPS,
+        "epochs": DP_TIMED_EPOCHS})
+    nccl = json.loads((work / "nccl_rank0.json").read_text())
+    if nccl["backend"] != "nccl" or nccl["world"] != 1 \
+            or not nccl["collectives_ok"] \
+            or nccl["launches"] != nccl["steps"]:
+        raise AssertionError(f"NCCL world 1: {nccl}")
+    refs = []
+
+    def reference() -> dict:
+        fr.apply_scaled_outer.launches = 0
+        res = train_cli.main(argv(f"ref_logs{len(refs)}", BATCH)
+                             + ["--num_epochs", "2"])
+        torch.cuda.synchronize()
+        refs.append({"losses": res["train_losses"],
+                     "w": _bf16_w(res["log_dir"])})
+        return refs[-1]
+
+    def differ(a: dict, b: dict) -> dict:
+        bits = a["w"].view(torch.int16) != b["w"].view(torch.int16)
+        return {"loss_max_abs": max(abs(x - y) for x, y in
+                                    zip(a["losses"], b["losses"])),
+                "w_elements_differ": int(bits.sum())}
+
+    got = {"losses": nccl["train_losses"], "w": _bf16_w(nccl["log_dir"])}
+    vs_ref = differ(got, reference())
+    nccl_check = {"vs_non_distributed": vs_ref, "bitwise": not any(
+        vs_ref.values())}
+    if not nccl_check["bitwise"]:
+        run_to_run = differ(refs[0], reference())
+        nccl_check["non_distributed_run_to_run"] = run_to_run
+        if any(vs_ref[k] > run_to_run[k] for k in vs_ref):
+            raise AssertionError(f"NCCL world 1 vs non-distributed: {vs_ref}"
+                                 f", beyond run to run: {run_to_run}")
+    nccl_ms = statistics.median(nccl["ms_per_step_windows"])
+    del refs, got
+
+    # (c) the model-sharded session on 2 gloo ranks against one rank
+    cfg = yaml.safe_load(_serve_yaml(work).read_text())
+    ckpt = _ckpt_dir(work / "logs")
+    rows = _fixture_trials(work / "data", "smokeeid0",
+                           max(DP_SERVE_ROWS)).reshape(max(DP_SERVE_ROWS), -1)
+    np.save(work / "dp_serve_rows.npy", rows)
+    serve_s = _torchrun(DP_SERVE_CHILD, DP_WORLD, {
+        "model_config": cfg, "ckpt_dir": str(ckpt),
+        "buckets": list(DP_SERVE_BUCKETS), "rows": str(work /
+                                                      "dp_serve_rows.npy"),
+        "sizes": list(DP_SERVE_ROWS), "out": str(work / "dp_serve")},
+        env={"VST_DIST_BACKEND": "gloo"})
+    session = InferenceSession.from_checkpoint(
+        cfg, str(ckpt), bucket_sizes=DP_SERVE_BUCKETS, device="cuda")
+    refs = {str(n): session.predict(rows[:n]) for n in DP_SERVE_ROWS}
+    del session
+    served = [np.load(work / f"dp_serve{r}.npz") for r in range(DP_WORLD)]
+    serve_errs = {n: _rel_err(served[0][n], ref) for n, ref in refs.items()}
+    if any(int(s["kernel_rows"]) != KERNEL_M // DP_WORLD for s in served) \
+            or any(int(s["launches"]) for s in served) \
+            or max(serve_errs.values()) > SERVE_REL_BOUND \
+            or any(not np.array_equal(s[n], served[0][n])
+                   for s in served for n in refs):
+        raise AssertionError(f"model-sharded session: rel errs {serve_errs}"
+                             f", rows {[int(s['kernel_rows']) for s in served]}")
+    _free_card()
+
+    out = {"nvidia_smi": smi, "world": DP_WORLD, "backend": "gloo",
+           "local_batch": local, "global_batch": BATCH,
+           "train_losses": r0["train_losses"], "steps_per_rank": r0["steps"],
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "launches": sum(r["launches"] for r in ranks),
+           "resume_launches": sum(r["resume_launches"] for r in ranks),
+           "replica_checksums": r0["replica_checksums"]
+           + r0["resume_replica_checksums"],
+           "test": r0["test"], "rank0_artifacts": written,
+           "same_rows_step": s0, "factor_bytes_per_step": factor_bytes,
+           "flat_gather_ms": statistics.median(
+               ms for r in ranks for ms in r["gather_ms"]),
+           "dp_ms_per_step": dp_ms,
+           "dp_ms_per_step_windows": [r["ms_per_step_windows"]
+                                      for r in ranks],
+           "nccl1_ms_per_step": nccl_ms,
+           "nccl1_ms_per_step_windows": nccl["ms_per_step_windows"],
+           "non_distributed_ms_per_step": staged_ms,
+           "nccl1": nccl_check, "nccl1_launches": nccl["launches"],
+           "nccl1_losses": nccl["train_losses"],
+           "serve_sharded_rel_err": serve_errs,
+           "serve_kernel_rows_per_rank": KERNEL_M // DP_WORLD,
+           "serve_bound": SERVE_REL_BOUND,
+           "launch_seconds": {"dp": dp_s, "nccl1": nccl_s, "serve": serve_s},
+           "note": "2 ranks time-slice one card: not a scaling figure"}
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit("dist_main_path", **out)
     return out
 
 
@@ -2717,6 +3111,7 @@ def main() -> int:
         lean = phase_linear_lean_path(work)
         accum = phase_linear_accum_path(work)
         stream = phase_stream_main_path(work, step_time["ms_per_step"])
+        dist = phase_dist_main_path(work, step_time["ms_per_step"])
         phase_optim_card_vs_cpu()
         phase_vtt_main_path(work)
         phase_vtt_card_vs_cpu()
@@ -2740,7 +3135,9 @@ def main() -> int:
         etl = phase_etl_main_path(work)
     # launches on the paths that run the kernel (every other path: 0)
     kernel["launches"] = (main_path["launches"] + lean["launches"]
-                          + stream["launches"] + probe["launches"])
+                          + stream["launches"] + dist["launches"]
+                          + dist["resume_launches"] + dist["nccl1_launches"]
+                          + probe["launches"])
     kernel["launches_by_path"] = {
         "linear": main_path["launches"],
         "linear_resume": main_path["resume_steps"],
@@ -2749,6 +3146,8 @@ def main() -> int:
         "linear_accum": accum["launches"],
         "stream": stream["launches"],
         "stream_resume": stream["resume_launches"],
+        "dp": dist["launches"], "dp_resume": dist["resume_launches"],
+        "dp_nccl1": dist["nccl1_launches"],
         "probe": probe["launches"], "probe_resume": probe["resume_launches"],
         "serve": serve["fused_readout_launches"]
         + vtt_serve["fused_readout_launches"],

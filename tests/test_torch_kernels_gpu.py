@@ -14,8 +14,15 @@ so every f32 rank-B sum is exact in any order); on random inputs >= 99.9%
 bitwise and every element within 1 bf16 ulp plus the f32 error bound of
 the rank-B sum (the kernel's summation order may differ from torch's
 matmul, which can flip a rounding). The host I/O's card paths (the pinned
-prefetch, the background fetch) are held bitwise against the CPU path.
+prefetch, the background fetch) are held bitwise against the CPU path. Two
+gloo ranks on one card run the data-parallel fused step (each gathers the
+other's rank-B factors) and end with bitwise-equal kernels.
 """
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -154,3 +161,58 @@ def test_background_fetch_sees_queued_kernels(cuda_device, tmp_path):
     assert fetched["n"] == 2 and not fetched["a"].is_cuda
     assert torch.equal(fetched["a"], tree["a"].cpu())
     assert torch.equal(fetched["b"][0], tree["b"][0].cpu())
+
+
+DP_FUSED = r"""
+import sys
+import torch
+import torch.distributed as dist
+from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.models.linear import LinearModel
+from video_spike_torch.ops import fused_readout as fr
+from video_spike_torch.ops import optim
+from video_spike_torch.ops.poisson import poisson_nll_mean
+from video_spike_torch.parallel import multihost as mh
+
+assert setup_runtime("cuda")
+r = mh.process_index()
+g = torch.Generator().manual_seed(0)
+model = LinearModel(input_dim=20_000, encoder_hidden=(256,), encoder_out=16,
+                    decoder_hidden=(32,), output_dim=400, device="cuda")
+model.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+params = {k: (p.detach().to(torch.bfloat16) if p.numel() >= 1 << 16
+              else p.detach()) for k, p in model.named_parameters()}
+sched = optim.cosine_onecycle_schedule(16, 5e-5, 0.15, 10, 1e4)
+tx = optim.Adafactor(sched)
+step = fr.make_fused_linear_step(model, tx, sched, poisson_nll_mean,
+                                 optim.apply_updates_sr,
+                                 group=dist.group.WORLD)
+opt = fr.init_fused_opt_state(params, tx)
+for i in range(3):
+    x = torch.randint(0, 255, (16, 20_000), generator=g, dtype=torch.uint8)
+    ap = torch.poisson(torch.ones(16, 100, 4), generator=g)
+    params, opt, _ = step(params, opt, x[8 * r:8 * r + 8].cuda(),
+                          ap[8 * r:8 * r + 8].cuda(), 16, i)
+w = params[fr.FIRST_KERNEL]
+assert fr.apply_scaled_outer.launches == 3, fr.apply_scaled_outer.launches
+sums = mh.replica_checksums({"w": w}, dist.group.WORLD)
+assert len(set(sums)) == 1, sums
+torch.save(w.cpu(), f"{sys.argv[1]}{r}.pt")
+"""
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_one_card_keep_w_bitwise_equal(cuda_device,
+                                                         tmp_path):
+    env = dict(os.environ, VST_DIST_BACKEND="gloo",
+               PYTHONPATH=os.pathsep.join(
+                   [str(Path(__file__).resolve().parent.parent),
+                    os.environ.get("PYTHONPATH", "")]))
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=2", "--no-python", sys.executable, "-c",
+         DP_FUSED, str(tmp_path / "w")],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, (p.stdout + p.stderr)[-6000:]
+    w0, w1 = (torch.load(tmp_path / f"w{r}.pt") for r in range(2))
+    assert torch.equal(w0.view(torch.int16), w1.view(torch.int16))

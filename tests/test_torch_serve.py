@@ -112,11 +112,29 @@ def test_predict_rejects_empty_batch(sessions):
 
 
 def test_mesh_not_ported():
-    _, params = _jax_linear()
-    for kw in ({"mesh": object()}, {"sharding_rules": lambda p, m: p}):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            InferenceSession(_port_linear(), flax_to_torch(params),
-                             device="cpu", **kw)
+    """``mesh=`` is ported: on the one-rank mesh the row-split first Dense
+    (all rows on the one rank) serves what the JAX session does;
+    ``sharding_rules`` without a mesh is ignored, as in the JAX session;
+    a row split of any other kernel is not ported and raises."""
+    from video_spike_torch.models.linear import first_layer_sharding_rules
+    from video_spike_torch.parallel.mesh import Placement, make_mesh
+
+    jm, params = _jax_linear()
+    x = _rows(11, 3)
+    want = JSession(jm, params, bucket_sizes=BUCKETS).predict(x)
+    mesh = make_mesh()
+    rules = lambda p, m: first_layer_sharding_rules(p, m, min_dim=N_FEAT)
+    for kw in ({"mesh": mesh, "sharding_rules": rules}, {"mesh": mesh},
+               {"sharding_rules": rules}):
+        got = InferenceSession(_port_linear(), flax_to_torch(params),
+                               bucket_sizes=BUCKETS, device="cpu",
+                               **kw).predict(x)
+        np.testing.assert_allclose(got, want, **TOL)
+    with pytest.raises(NotImplementedError, match="first kernel"):
+        InferenceSession(_port_linear(), flax_to_torch(params),
+                         device="cpu", mesh=mesh, sharding_rules=lambda p, m: {
+                             k: Placement(m, "model" if k.endswith("kernel")
+                                          else None) for k in p})
 
 
 def test_cuda_without_card_raises():

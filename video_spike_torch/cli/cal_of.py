@@ -20,6 +20,7 @@ import argparse
 import numpy as np
 
 from video_spike_torch.core.device import resolve_device
+from video_spike_torch.core.runtime import setup_runtime
 from video_spike_torch.data.dataset import SessionDataset, split_dataset
 from video_spike_torch.ops.flow import get_optic_flow
 from video_spike_torch.viz.embeddings import (float32_to_uint8,
@@ -35,6 +36,7 @@ def main(argv=None):
     parser.add_argument("--out", type=str, default="of_demo.gif")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
+    setup_runtime(args.device)
     device = resolve_device(args.device)
 
     split = split_dataset(args.data_dir, eid=args.eid, seed=0)

@@ -29,6 +29,7 @@ import numpy as np
 from video_spike_torch.core.cli import get_args
 from video_spike_torch.core.config import config_from_kwargs, update_config
 from video_spike_torch.core.rng import set_seed
+from video_spike_torch.core.runtime import setup_runtime
 from video_spike_torch.data.dataset import make_loader, split_dataset
 from video_spike_torch.data.rrr_data import SHORTNAME_TO_MOD, get_rrr_data
 
@@ -46,6 +47,7 @@ def build(argv=None):
     """(args, {eid: {"X": [train, test, val], "y": [...], "timestamp": [...],
     "setup": {}}}) for the modality of ``--input_mod``."""
     args = get_args(argv)
+    setup_runtime("cpu")
     config = config_from_kwargs({"model": f"include:{args.model_config}"})
     config = update_config(args.train_config, config)
     # argparse values merge LAST, as in the reference (src/train.py:28-30)

@@ -22,6 +22,7 @@ import numpy as np
 
 from video_spike_torch.core.config import config_from_kwargs, update_config
 from video_spike_torch.core.logging import logging as make_logger
+from video_spike_torch.core.runtime import setup_runtime
 
 
 def main(argv=None):
@@ -41,6 +42,7 @@ def main(argv=None):
                         help="torch device; 'cuda' raises when no card is "
                              "present, 'cpu' must be asked for")
     args = parser.parse_args(argv)
+    setup_runtime(args.device)
 
     log = make_logger(header="[export]")
     # update_config resolves the include: (config_from_kwargs alone leaves

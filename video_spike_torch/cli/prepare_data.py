@@ -35,6 +35,7 @@ from pathlib import Path
 import numpy as np
 
 from video_spike_torch.core.device import resolve_device
+from video_spike_torch.core.runtime import setup_runtime
 from video_spike_torch.data.ibl import (
     active_neuron_mask,
     align_spike_behavior,
@@ -189,6 +190,7 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="device of the torch flow (cuda or cpu)")
     args = parser.parse_args(argv)
+    setup_runtime(args.device)
     backend = "torch" if args.flow_backend == "jax" else args.flow_backend
     device = resolve_device(args.device)
 

@@ -35,6 +35,7 @@ from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
 from video_spike_torch.core.registry import NAME2MODEL
 from video_spike_torch.core.rng import set_seed
+from video_spike_torch.core.runtime import setup_runtime
 from video_spike_torch.data.contrast import make_contrast_loader
 from video_spike_torch.train.contrast import make_contrast_trainer
 
@@ -48,6 +49,7 @@ def build_trainer(argv=None, data=None, log=None,
     ``--h5_path``)."""
     log = log or make_logger(header="[pretrain]")
     args, extra = _parse(argv)
+    setup_runtime(args.device)
     device = resolve_device(args.device)
     config = config_from_kwargs({"model": f"include:{args.model_config}"})
     config = update_config(args.train_config, config)

@@ -36,6 +36,7 @@ from video_spike_torch.core.config import config_from_kwargs, update_config
 from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
 from video_spike_torch.core.rng import set_seed
+from video_spike_torch.core.runtime import setup_runtime
 from video_spike_torch.data.dataset import make_loader, split_dataset
 from video_spike_torch.models.videomae import (
     VideoMAEForPreTraining,
@@ -79,6 +80,7 @@ def make_step(model, tx, num_frames: int, image_size: int,
 def main(argv=None):
     log = make_logger(header="[vmae-pretrain]")
     args, extra = _parse(argv)
+    setup_runtime(args.device)
     device = resolve_device(args.device)
     config = config_from_kwargs({"model": f"include:{args.model_config}"})
     config = update_config(args.train_config, config)

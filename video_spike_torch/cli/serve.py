@@ -24,6 +24,7 @@ import numpy as np
 
 from video_spike_torch.core.config import config_from_kwargs, update_config
 from video_spike_torch.core.logging import logging as make_logger
+from video_spike_torch.core.runtime import setup_runtime
 
 
 def make_app(argv=None):
@@ -43,6 +44,7 @@ def make_app(argv=None):
                         help="torch device; 'cuda' raises when no card is "
                              "present, 'cpu' must be asked for")
     args = parser.parse_args(argv)
+    setup_runtime(args.device)
 
     log = make_logger(header="[serve]")
     # update_config resolves the include: (config_from_kwargs alone leaves

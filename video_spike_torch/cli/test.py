@@ -39,6 +39,7 @@ from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
 from video_spike_torch.core.registry import NAME2MODEL
 from video_spike_torch.core.rng import set_seed
+from video_spike_torch.core.runtime import setup_runtime
 from video_spike_torch.data.contrast import make_contrast_loader
 from video_spike_torch.train.contrast import make_contrast_trainer
 from video_spike_torch.train.rrr_pipeline import train_rrr
@@ -55,6 +56,7 @@ def main(argv=None, data=None):
     parser.add_argument("--plot_dir", type=str, default=".")
     extra, rest = parser.parse_known_args(argv)
     args = get_args(rest)
+    setup_runtime(args.device)
     if args.save_plot:
         from video_spike_torch.viz import pyplot
 

@@ -17,7 +17,11 @@ trains on the features). ``--eid all`` (the sessions of ``data/eid.txt``) or
 a comma list ``--eid e1,e2,...`` trains the multi-session flagship
 (``configs/model/vtt_video.yaml``) instead, sized from the probed sessions.
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for ``cuda``
-without a card raises.
+without a card raises. Under ``torch.distributed.run`` the ranks train
+data-parallel (``core/runtime.setup_runtime``; each rank reads its shard of
+the training trials, ``--batch_size`` is the per-rank batch):
+
+    torchrun --nproc_per_node=K -m video_spike_torch.cli.train ...
 """
 
 from __future__ import annotations
@@ -30,11 +34,13 @@ from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
 from video_spike_torch.core.registry import NAME2MODEL
 from video_spike_torch.core.rng import set_seed
+from video_spike_torch.core.runtime import setup_runtime
 from video_spike_torch.data.dataset import (
     get_metadata_from_loader,
     make_loader,
     split_dataset,
 )
+from video_spike_torch.parallel.multihost import shard_files_for_process
 from video_spike_torch.train.base import BaseTrainer
 from video_spike_torch.train.multisession import MultiSessionTrainer
 
@@ -67,7 +73,9 @@ def build_trainer(args):
     if not split["train"]:
         raise SystemExit(
             f"no trial tars for eid {args.eid} in {config.dirs.data_dir}")
-    train_dl, val_dl, test_dl = make_loader(config, split)
+    # this rank's training shard; val/test stay whole on every rank
+    local_split = dict(split, train=shard_files_for_process(split["train"]))
+    train_dl, val_dl, test_dl = make_loader(config, local_split)
     meta = get_metadata_from_loader(train_dl, config)
     log.info(f"meta_data: {meta}")
 
@@ -112,6 +120,7 @@ def _build_multisession(args, config, log, device):
 
 def main(argv=None):
     args = get_args(argv)
+    setup_runtime(args.device)
     trainer = build_trainer(args)
     if args.resume:
         trainer.resume()

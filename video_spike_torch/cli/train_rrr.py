@@ -29,6 +29,7 @@ from video_spike_torch.core.cli import get_args
 from video_spike_torch.core.config import config_from_kwargs, update_config
 from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.rng import set_seed
+from video_spike_torch.core.runtime import setup_runtime
 from video_spike_torch.data.rrr_data import EMBEDDING_MODS, SHORTNAME_TO_MOD
 from video_spike_torch.models.rrr import train_model_main
 from video_spike_torch.ops.signal import one_hot_per_trial, standardize
@@ -151,6 +152,7 @@ def main(argv=None):
                              "objective) or the reference-parity LBFGS")
     extra, rest = parser.parse_known_args(argv)
     args = get_args(rest)
+    setup_runtime(args.device)
     device = resolve_device(args.device)
     config = config_from_kwargs({"model": f"include:{args.model_config}"})
     config = update_config(args.train_config, config)

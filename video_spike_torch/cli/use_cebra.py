@@ -30,6 +30,7 @@ from video_spike_torch.core.cli import get_args
 from video_spike_torch.core.config import config_from_kwargs, update_config
 from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.rng import set_seed
+from video_spike_torch.core.runtime import setup_runtime
 from video_spike_torch.data.dataset import make_loader, split_dataset
 from video_spike_torch.data.rrr_data import get_rrr_data
 from video_spike_torch.models.cebra import (get_cebra_embedding,
@@ -47,6 +48,7 @@ def build(argv=None) -> dict:
     parser.add_argument("--max_iterations", type=int, default=5000)
     extra, rest = parser.parse_known_args(argv)
     args = get_args(rest)
+    setup_runtime(args.device)
     resolve_device(args.device)      # a missing card raises before any work
 
     config = config_from_kwargs({"model": f"include:{args.model_config}"})

@@ -2,14 +2,16 @@
 
 Capability parity with the reference's ``src/utils/log_utils.py:16-144``: a
 `logging(header=..., header_color=...)` object exposing info/warning/error/
-debug. The JAX package silences non-primary hosts of a multi-process run;
-the port runs one process, so every call prints.
+debug. In a multi-process run only rank 0 prints; errors print on every
+rank (they matter for debugging a run that spans processes).
 """
 
 from __future__ import annotations
 
 import logging as pylogging
 import sys
+
+import torch.distributed as dist
 
 try:
     from rich.logging import RichHandler
@@ -21,6 +23,13 @@ except ImportError:  # pragma: no cover
 
 _CONFIGURED = False
 _RICH_ACTIVE = False
+
+
+def _is_primary() -> bool:
+    """Rank 0, or no process group (read at each call: a logger may be made
+    before the group is initialised)."""
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() != 0)
 
 
 def _configure_root(level=pylogging.INFO) -> None:
@@ -40,7 +49,7 @@ def _configure_root(level=pylogging.INFO) -> None:
 
 
 class logging:  # noqa: N801 — keep the reference's lowercase class name
-    """Named logger with a decorative header."""
+    """Named logger with a decorative header, rank-0 gated."""
 
     def __init__(self, header: str = "[vstorch]",
                  header_color: str = "#7aa2f7", level=pylogging.INFO):
@@ -56,13 +65,16 @@ class logging:  # noqa: N801 — keep the reference's lowercase class name
         return f"{self.header} {msg}"
 
     def info(self, msg: str) -> None:
-        self._log.info(self._fmt(msg), extra={"markup": True})
+        if _is_primary():
+            self._log.info(self._fmt(msg), extra={"markup": True})
 
     def warning(self, msg: str) -> None:
-        self._log.warning(self._fmt(msg), extra={"markup": True})
+        if _is_primary():
+            self._log.warning(self._fmt(msg), extra={"markup": True})
 
     def error(self, msg: str) -> None:
         self._log.error(self._fmt(msg), extra={"markup": True})
 
     def debug(self, msg: str) -> None:
-        self._log.debug(self._fmt(msg), extra={"markup": True})
+        if _is_primary():
+            self._log.debug(self._fmt(msg), extra={"markup": True})

@@ -7,9 +7,9 @@ Counterpart of ``video_spike_tpu/core/tracking.py`` (reference
 included) written as a float, line-buffered so a run is inspectable while
 it trains; ``log_figure`` writes a ``{"t", "figure", "path", "step"}``
 record and hands wandb the live figure. wandb is imported only when
-``use_wandb`` is set; without it the JSONL still records everything. One
-process writes (the JAX package's rank gating waits for the distributed
-port, ROADMAP.md Queue A item 14).
+``use_wandb`` is set; without it the JSONL still records everything. In a
+multi-process run only rank 0 writes: the other ranks write to
+``os.devnull``, never init wandb and save no figure.
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ import os
 import time
 from typing import Dict, Optional
 
+import torch.distributed as dist
+
 
 class Tracker:
     def __init__(self, log_dir: str, project: str = "ibl-video",
@@ -26,6 +28,10 @@ class Tracker:
                  config: Optional[dict] = None):
         os.makedirs(log_dir, exist_ok=True)
         self._path = os.path.join(log_dir, "metrics.jsonl")
+        if (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() != 0):
+            self._path = os.devnull
+            use_wandb = False
         self._file = open(self._path, "a", buffering=1)
         self._t0 = time.time()
         self._wandb = None
@@ -54,6 +60,8 @@ class Tracker:
         beside ``metrics.jsonl`` as ``<name>.png`` unless ``path`` says
         where the caller saved it); wandb gets it as an Image."""
         if path is None:
+            if self._path == os.devnull:
+                return   # figures are rank 0's
             path = os.path.join(os.path.dirname(self._path), f"{name}.png")
             fig.savefig(path)
         record = {"t": round(time.time() - self._t0, 3),

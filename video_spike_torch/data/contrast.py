@@ -52,7 +52,8 @@ def load_h5_file(file_path: str, eid: Optional[str] = None) -> Dict:
 
 
 class ContrastDataset:
-    """Frame dataset with temporal positive sampling (one process)."""
+    """Frame dataset with temporal positive sampling; ``rank`` / ``world``
+    of the batch iterators stride it over the ranks of a process group."""
 
     def __init__(self, data_dict: Dict, mode: str,
                  image_size: int = 144, idx_offset: int = 10,
@@ -64,6 +65,7 @@ class ContrastDataset:
         self.time_offset = time_offset
         self.seed = seed
         self.rng = np.random.default_rng(seed)
+        self._epoch = 0
 
         if mode == "pretrain":
             video = np.concatenate([data_dict["train_X"], data_dict["val_X"],
@@ -88,24 +90,28 @@ class ContrastDataset:
         return len(self.video)
 
     # -- index sampling (reference `_select_pos_idx` / `_select_neg_idx`) ---
-    def _pos_idx(self, idx: np.ndarray) -> np.ndarray:
+    def _pos_idx(self, idx: np.ndarray,
+                 rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        rng = self.rng if rng is None else rng
         if self.time_offset is None:
             start = np.maximum(0, idx - self.idx_offset)
             end = np.minimum(self.num_frames, idx + self.idx_offset + 1)
-            return self.rng.uniform(start, end).astype(np.int64)
+            return rng.uniform(start, end).astype(np.int64)
         ts = self.timestamp
         out = np.empty_like(idx)
         for i, j in enumerate(idx):
             valid = np.where(np.abs(ts - ts[j]) <= self.time_offset)[0]
-            out[i] = self.rng.choice(valid) if valid.size else j
+            out[i] = rng.choice(valid) if valid.size else j
         return out
 
-    def _neg_idx(self, idx: np.ndarray) -> np.ndarray:
-        neg = self.rng.integers(0, self.num_frames, size=idx.shape)
+    def _neg_idx(self, idx: np.ndarray,
+                 rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        rng = self.rng if rng is None else rng
+        neg = rng.integers(0, self.num_frames, size=idx.shape)
         clash = neg == idx
         while np.any(clash):
-            neg[clash] = self.rng.integers(0, self.num_frames,
-                                           size=int(clash.sum()))
+            neg[clash] = rng.integers(0, self.num_frames,
+                                      size=int(clash.sum()))
             clash = neg == idx
         return neg
 
@@ -113,47 +119,73 @@ class ContrastDataset:
     def sampler_state(self) -> Dict:
         """JSON-serializable snapshot of the sampling stream (the numpy
         Generator's bit-generator state; PCG64 ints are arbitrary-precision
-        and JSON-safe). Capture it before an epoch's ``iter_batches`` call;
-        :meth:`set_sampler_state` + ``skip=`` replays that epoch's batch
-        stream exactly. ``epoch`` is the JAX package's multi-process epoch
-        counter, always 0 in one process."""
-        return {"rng_state": self.rng.bit_generator.state, "epoch": 0}
+        and JSON-safe) plus the multi-process epoch counter. Capture it
+        before an epoch's ``iter_batches`` call; :meth:`set_sampler_state` +
+        ``skip=`` replays that epoch's batch stream exactly."""
+        return {"rng_state": self.rng.bit_generator.state,
+                "epoch": self._epoch}
 
-    def set_sampler_state(self, state: Dict) -> None:
-        self.rng.bit_generator.state = state["rng_state"]
+    def set_sampler_state(self, state: Dict,
+                          restore_rng: bool = True) -> None:
+        if restore_rng:
+            self.rng.bit_generator.state = state["rng_state"]
+        self._epoch = int(state.get("epoch", 0))
 
     # -- batching ------------------------------------------------------------
     def iter_index_batches(self, batch_size: int, shuffle: bool = True,
+                           rank: int = 0, world: int = 1,
                            skip: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """Like :meth:`iter_batches` but yields frame indices instead of
         frames — the frame cache's input (the trainer gathers rows on the
         card). Draws from the same rng stream in the same order, so sampler
-        snapshots and ``skip`` replay identically in both forms."""
+        snapshots and ``skip`` replay identically in both forms.
+
+        One process draws from the stateful ``self.rng`` stream. With
+        ``world > 1`` the draws are stateless: the epoch's order comes from
+        ``default_rng((seed, epoch))``, the same on every rank, and each
+        batch's pos/neg draws from ``default_rng((seed, epoch, rank, batch
+        position))``, so a mid-epoch resume on any rank replays the rest
+        of the epoch exactly without per-rank rng state."""
         order = np.arange(len(self))
+        epoch_used = self._epoch
         if shuffle:
-            self.rng.shuffle(order)
-        for s in range(0, len(order), batch_size):
+            if world > 1:
+                np.random.default_rng((self.seed, self._epoch)).shuffle(order)
+                self._epoch += 1
+            else:
+                self.rng.shuffle(order)
+        if world > 1:
+            order = order[rank::world]
+        for bi, s in enumerate(range(0, len(order), batch_size)):
             idx = order[s:s + batch_size]
             if skip > 0:
                 skip -= 1
-                if self.mode == "pretrain":
+                if self.mode == "pretrain" and world == 1:
                     # consume the skipped batches' draws so the stream stays
-                    # bit-aligned with the original epoch
+                    # bit-aligned with the original epoch (the counter-keyed
+                    # multi-process draws need none)
                     self._pos_idx(idx)
                     self._neg_idx(idx)
                 continue
             if self.mode == "pretrain":
-                yield {"ref": idx, "pos": self._pos_idx(idx),
-                       "neg": self._neg_idx(idx)}
+                rng = (np.random.default_rng((self.seed, epoch_used, rank, bi))
+                       if world > 1 else None)
+                yield {"ref": idx, "pos": self._pos_idx(idx, rng),
+                       "neg": self._neg_idx(idx, rng)}
             else:
                 yield {"ref": idx}
 
     def iter_batches(self, batch_size: int, shuffle: bool = True,
+                     rank: int = 0, world: int = 1,
                      skip: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """Frame batches ({ref, pos, neg} uint8) in pretrain mode, trial
-        batches ({ref, neural}) otherwise."""
+        batches ({ref, neural}) otherwise. ``rank`` / ``world`` stride the
+        shuffled frame order over the ranks (the DistributedSampler
+        contract): every rank derives the same order from (seed, epoch),
+        takes ``order[rank::world]``, and still draws positives and
+        negatives from the whole frame array."""
         for ib in self.iter_index_batches(batch_size, shuffle=shuffle,
-                                          skip=skip):
+                                          rank=rank, world=world, skip=skip):
             if self.mode == "pretrain":
                 yield {"ref": self.video[ib["ref"]],
                        "pos": self.video[ib["pos"]],

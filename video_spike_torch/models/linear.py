@@ -132,3 +132,15 @@ class LinearModel(nn.Module):
         x = preprocess_flat(self, x)
         x = self.decoder(self.encoder(x))
         return x.float().reshape(b, self.t_bins, self.output_dim // self.t_bins)
+
+
+def first_layer_sharding_rules(params, mesh, min_dim: int = 1 << 18):
+    """A placement per leaf of a flat params dict: 2-D kernels whose input
+    dimension is at least `min_dim` split their rows over the ``model``
+    axis (the contraction is then a partial product per rank and one
+    all-reduce); everything else is replicated."""
+    from video_spike_torch.parallel.mesh import Placement
+
+    return {k: Placement(mesh, "model" if k.endswith("kernel")
+                         and v.ndim == 2 and v.shape[0] >= min_dim else None)
+            for k, v in params.items()}

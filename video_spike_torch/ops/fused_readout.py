@@ -20,6 +20,14 @@ The same update carries the VideoMAE probe's ``encoder_head`` kernel,
 (1,204,224, 256) at batch 8, over cached frozen features
 (``make_fused_probe_head_step``).
 
+Under data parallelism (``group`` of the mesh's ``data`` axis) the step
+never all-reduces the (M, N) gradient, which it does not have: each rank
+all-gathers the rank-B factors (``flat`` and ``dz``, rows in rank order, so
+row b of the gathered batch is row b of the global batch) and runs the same
+update on the global batch with the same seed, so the replicas of W stay
+bitwise equal without a broadcast. The other leaves' gradients and the loss
+are all-reduced with SUM (the criterion divides by the global row count).
+
 Parameters are a flat dict ``{"encoder.Dense_0.kernel": tensor, ...}``
 whose kernels keep the flax (in, out) layout, so the SR bits, keyed by the
 flat index ``row*N + col``, match the JAX package's.
@@ -34,6 +42,10 @@ import numpy as np
 import torch
 
 from video_spike_torch.ops.optim import MASK32, mix_bits, seed_key
+from video_spike_torch.parallel.multihost import (
+    gather_rows,
+    sum_grads_and_loss,
+)
 
 # distinct leaf constant so the SR stream cannot collide with
 # ops/optim.apply_updates_sr's small leaf ids
@@ -296,7 +308,7 @@ def merge_first_kernel(rest: Mapping[str, torch.Tensor],
 
 
 def make_fused_linear_step(model, tx_rest, schedule, criterion,
-                           apply_updates_rest):
+                           apply_updates_rest, group=None):
     """Build ``step(params, opt_state, inputs, ap, n_valid, seed)`` with the
     first-Dense update fused (rank-B factors, no materialized gradient) and
     every other leaf on ``tx_rest``. ``opt_state`` is
@@ -305,7 +317,8 @@ def make_fused_linear_step(model, tx_rest, schedule, criterion,
     The first kernel is updated in place; the returned params dict holds the
     same kernel tensor and new tensors for the rest. dz comes from autograd
     on ``z_nob`` through the tail, as ``jax.value_and_grad(argnums=(0, 1))``
-    gives it in the JAX package.
+    gives it in the JAX package. With a data ``group``, ``inputs`` and
+    ``ap`` are this rank's rows and ``n_valid`` the global valid-row count.
     """
 
     def step(params, opt_state, inputs, ap, n_valid, seed):
@@ -321,15 +334,15 @@ def make_fused_linear_step(model, tx_rest, schedule, criterion,
         loss = criterion(out, ap, n_valid)
         names = list(leaves)
         grads = torch.autograd.grad(loss, [leaves[k] for k in names] + [z_nob])
-        g_rest = dict(zip(names, grads[:-1]))
-        dz = grads[-1]
         with torch.no_grad():
+            g_rest, loss = sum_grads_and_loss(dict(zip(names, grads[:-1])),
+                                        loss.detach(), group)
+            flat, dz = gather_rows(flat, group), gather_rows(grads[-1], group)
             upd, rest_state = tx_rest.update(g_rest, rest_state, rest)
             rest = apply_updates_rest(rest, upd, seed)
             kernel, fstate = fused_readout_update(
                 kernel, flat, dz, fstate, schedule, seed=seed)
-        return (merge_first_kernel(rest, kernel), (fstate, rest_state),
-                loss.detach())
+        return (merge_first_kernel(rest, kernel), (fstate, rest_state), loss)
 
     return step
 
@@ -366,7 +379,7 @@ def merge_head_kernel(rest: Mapping[str, torch.Tensor],
 
 
 def make_fused_probe_head_step(model, tx_rest, schedule, criterion,
-                               apply_updates_rest):
+                               apply_updates_rest, group=None):
     """Fused head-only train step over cached frozen features:
     ``step(params, opt_state, hidden, ap, n_valid, seed)`` with ``hidden``
     the (B, L, D) backbone output and ``opt_state = (FusedReadoutState,
@@ -377,6 +390,7 @@ def make_fused_probe_head_step(model, tx_rest, schedule, criterion,
     autograd on ``z_nob``. Only the head's other leaves (its bias and the
     decoder head) are differentiated and passed to ``tx_rest``: the rest of
     the parameters is the frozen backbone, which the step returns as it is.
+    A data ``group`` gathers and reduces as :func:`make_fused_linear_step`.
     """
     out_dim = model.config["decoder"]["output_dim"]
 
@@ -396,15 +410,15 @@ def make_fused_probe_head_step(model, tx_rest, schedule, criterion,
         loss = criterion(out, ap, n_valid)
         names = list(head)
         grads = torch.autograd.grad(loss, [head[k] for k in names] + [z_nob])
-        dz = grads[-1]
         with torch.no_grad():
+            g_head, loss = sum_grads_and_loss(dict(zip(names, grads[:-1])),
+                                        loss.detach(), group)
+            flat, dz = gather_rows(flat, group), gather_rows(grads[-1], group)
             trained = {k: rest[k] for k in names}
-            upd, rest_state = tx_rest.update(dict(zip(names, grads[:-1])),
-                                             rest_state, trained)
+            upd, rest_state = tx_rest.update(g_head, rest_state, trained)
             rest = {**rest, **apply_updates_rest(trained, upd, seed)}
             kernel, fstate = fused_readout_update(
                 kernel, flat, dz, fstate, schedule, seed=seed)
-        return (merge_head_kernel(rest, kernel), (fstate, rest_state),
-                loss.detach())
+        return (merge_head_kernel(rest, kernel), (fstate, rest_state), loss)
 
     return step

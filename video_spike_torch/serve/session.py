@@ -9,9 +9,15 @@ is eager under ``torch.inference_mode()`` with the model in eval mode and
 time (the JAX package compiles one executable per bucket). ``warmup()``
 runs every bucket once at startup.
 
-Not in this port yet (ROADMAP.md): serving a model sharded over a device
-mesh (``mesh=`` / ``sharding_rules=``, Queue A item 14) and a captured CUDA
-graph per bucket.
+With ``mesh=`` (``parallel.mesh.make_mesh`` over a process group) and
+``sharding_rules=`` (e.g. ``models.linear.first_layer_sharding_rules``)
+every rank holds its row block of the Linear model's first Dense kernel
+(983,040 of its 1,966,080 rows at model = 2) and the rest replicated; a
+request runs on every rank with the same rows (a collective: every rank
+calls ``predict`` with the same batch), each rank computes
+``x[:, rows] @ W_rows`` and the partial products are all-reduced with SUM
+over the ``model`` axis before the bias. Not in this port yet (ROADMAP.md):
+a captured CUDA graph per bucket.
 """
 
 from __future__ import annotations
@@ -23,14 +29,29 @@ import numpy as np
 import torch
 
 from video_spike_torch.core.device import resolve_device
+from video_spike_torch.ops.fused_readout import (
+    FIRST_BIAS,
+    FIRST_KERNEL,
+    preprocess_flat,
+    tail_apply,
+)
+from video_spike_torch.parallel import multihost as mh
+from video_spike_torch.parallel.mesh import replicated
+
+
+# rows of the row-split first kernel upcast to f32 at once
+_ROW_CHUNK = 1 << 16
 
 
 def prepare_for_inference(model: torch.nn.Module,
                           params: Mapping[str, torch.Tensor],
-                          device: torch.device) -> torch.nn.Module:
+                          device: torch.device,
+                          row_split: int = 1,
+                          sharded=()) -> torch.nn.Module:
     """The model in eval mode with ``remat`` off, holding `params` on
     `device` in their stored dtype (a bf16 SR-stored kernel stays bf16, as
-    the trainer's ``_set_params`` keeps it) without a further copy."""
+    the trainer's ``_set_params`` keeps it) without a further copy. A leaf
+    named in `sharded` holds 1/`row_split` of the model's rows."""
     named = dict(model.named_parameters())
     if set(named) != set(params):
         raise KeyError(f"checkpoint params differ from the model's: missing "
@@ -38,7 +59,10 @@ def prepare_for_inference(model: torch.nn.Module,
                        f"{sorted(set(params) - set(named))[:4]}")
     for k, p in named.items():
         t = params[k]
-        if tuple(t.shape) != tuple(p.shape):
+        want = tuple(p.shape)
+        if k in sharded:
+            want = (want[0] // row_split,) + want[1:]
+        if tuple(t.shape) != want:
             raise ValueError(f"{k}: checkpoint shape {tuple(t.shape)} vs "
                              f"model {tuple(p.shape)}")
         p.data = t.detach().to(device)
@@ -72,7 +96,8 @@ def _fill_dims(model_config, params: Mapping[str, torch.Tensor]):
 
 class InferenceSession:
     """Bucket-batched, eager ``model(x[, session_ids])`` over fixed params
-    on one device.
+    on one device, or with the Linear first kernel's rows split over the
+    ranks of a mesh's ``model`` axis.
 
     ``needs_session_ids`` covers models whose forward takes per-sample
     session ids besides the data batch (the VTT flagship); ids a request
@@ -82,12 +107,24 @@ class InferenceSession:
                  bucket_sizes: Sequence[int] = (1, 2, 4, 8, 16, 32),
                  needs_session_ids: bool = False, device="cuda",
                  mesh=None, sharding_rules=None):
-        if mesh is not None or sharding_rules is not None:
-            raise NotImplementedError(
-                "serving over a device mesh (mesh= / sharding_rules=) is not "
-                "ported yet; see ROADMAP.md Queue A item 14 (distributed)")
         self.device = resolve_device(device)
-        self.model = prepare_for_inference(model, params, self.device)
+        self.mesh = mesh
+        self._sharded = ()
+        if mesh is not None:
+            rules = (sharding_rules(params, mesh) if sharding_rules
+                     else {k: replicated(mesh) for k in params})
+            params = mh.put_tree(
+                {k: v.to(self.device) for k, v in params.items()}, rules)
+            self._sharded = tuple(k for k, r in rules.items()
+                                  if r.axis == "model")
+            if set(self._sharded) - {FIRST_KERNEL}:
+                raise NotImplementedError(
+                    f"row-split serving covers the Linear first kernel "
+                    f"only, not {sorted(set(self._sharded) - {FIRST_KERNEL})}")
+        self.model = prepare_for_inference(
+            model, params, self.device,
+            row_split=mesh.shape["model"] if mesh is not None else 1,
+            sharded=self._sharded)
         self.buckets = sorted(set(int(b) for b in bucket_sizes))
         self.needs_session_ids = needs_session_ids
         self._seen: set = set()
@@ -161,10 +198,33 @@ class InferenceSession:
                 sids = np.concatenate([sids, np.repeat(sids[-1:], pad)])
             args.append(torch.from_numpy(sids).to(self.device))
         with torch.inference_mode():
-            out = self.model(*args)[:n].float().cpu().numpy()
+            out = self._forward(*args)[:n].float().cpu().numpy()
         if bucket not in self._seen:
             self._seen.add(bucket)
             self.stats["compiles"] += 1
         self.stats["requests"] += 1
         self.stats["padded_rows"] += pad
         return out
+
+    def _forward(self, *args) -> torch.Tensor:
+        """The model's forward, or with a row-split first kernel: this
+        rank's partial product of the first Dense, summed over the
+        ``model`` axis, then the bias and the rest of the model."""
+        if not self._sharded:
+            return self.model(*args)
+        p, model = self.params, self.model
+        w = p[FIRST_KERNEL]
+        rows, j = w.shape[0], self.mesh.coords["model"]
+        cd = model.compute_dtype
+        flat = preprocess_flat(model, args[0])[:, j * rows:(j + 1) * rows]
+        # the partial product of the compute-dtype operands, summed in f32
+        # and rounded to the compute dtype once, after the all-reduce, as
+        # the one-rank GEMM rounds its f32 accumulator once (bf16 partials
+        # rounded before the sum part from it by more than a bf16 ulp)
+        z = torch.zeros((flat.shape[0], w.shape[1]), dtype=torch.float32,
+                        device=w.device)
+        for r0 in range(0, rows, _ROW_CHUNK):
+            r1 = min(r0 + _ROW_CHUNK, rows)
+            z += flat[:, r0:r1].to(cd).float() @ w[r0:r1].to(cd).float()
+        z = mh.all_sum(z, self.mesh.group("model")).to(cd)
+        return tail_apply(model, p, z + p[FIRST_BIAS].to(cd))

@@ -47,9 +47,23 @@ Counterpart of ``video_spike_tpu/train/base.py:BaseTrainer`` on one device
   epoch and for the test split; ``profiling: {enable, dir, steps}`` traces
   ``steps`` steps of the streaming epoch once ``global_step > 2`` with
   ``torch.profiler`` into ``dir`` (the cached epoch is not traced, as in
-  the JAX trainer).
-
-Not in this slice (ROADMAP.md): the device mesh and multihost (item 14).
+  the JAX trainer);
+- under a process group (``torch.distributed.run``; ``core/runtime``) the
+  ranks train data-parallel on the mesh's ``data`` axis
+  (``training.mesh``, default every rank on ``data``): each rank streams
+  its shard of the training trials (``parallel/multihost``), drops its
+  ragged tail and runs the step count every rank agrees on
+  (``global_min``); a standard step all-reduces the gradients and the
+  loss with SUM (the criterion divides by the global row count), the fused
+  step gathers its rank-B factors; ``device_cache`` stages each rank's
+  shard on its own device (``_stage_device_dataset_multihost``, with a
+  ``global_any`` fallback to streaming); eval rows are split over the
+  ranks and the predictions gathered; a preemption is agreed with
+  ``global_any`` before any save; rank 0 alone writes checkpoints,
+  results and figures, synchronously (no background flush mid-train and
+  no async final save), and every rank reads them after a barrier; after
+  each epoch the ranks compare checksums of their parameters and raise if
+  the replicas drifted apart. A ``model`` axis > 1 is not trained here.
 """
 
 from __future__ import annotations
@@ -78,6 +92,8 @@ from video_spike_torch.ops.optim import (
     make_optimizer,
 )
 from video_spike_torch.ops.poisson import poisson_nll_mean
+from video_spike_torch.parallel import multihost as mh
+from video_spike_torch.parallel.mesh import make_mesh
 from video_spike_torch.train.checkpoint import (
     checkpoint_exists,
     load_checkpoint,
@@ -114,6 +130,22 @@ class BaseTrainer:
 
             pyplot()   # no matplotlib: fail now, not after training
 
+        # the mesh from config (the Accelerate-config analog), e.g.
+        # training.mesh: {data: 4}; default: every rank on data. One rank
+        # drives one device, so a rank's batch always divides its devices.
+        mesh_cfg = config.training.get("mesh", {}) or {}
+        mesh = make_mesh(n_data=mesh_cfg.get("data"),
+                         n_model=mesh_cfg.get("model", 1))
+        if mesh.shape["model"] > 1:
+            raise NotImplementedError(
+                "training with a model axis > 1 is not ported (ROADMAP.md); "
+                "set training.mesh.model to 1")
+        self.mesh = mesh
+        self._dp_group = mesh.group("data")
+        self._multihost = mh.is_multihost()
+        self._is_main = mh.process_index() == 0
+        self.replica_checksums: list = []
+
         base_log_dir = log_dir or config.dirs.log_dir
         self.log_dir = os.path.join(
             base_log_dir, eid[:5], "_".join(self.input_mods),
@@ -122,8 +154,11 @@ class BaseTrainer:
 
         seed = seed if seed is not None else config.get("seed", 42)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # schedule horizon = global steps: each rank takes one global step
+        # per local batch of its shard, so the count divides by the ranks
         total_steps = (len(dataset_split_dict["train"])
-                       // config.training.train_batch_size
+                       // (config.training.train_batch_size
+                           * mh.process_count())
                        * config.training.num_epochs)
         frozen = getattr(model, "frozen_param_paths", None)
         self._frozen_paths = tuple(frozen()) if callable(frozen) else ()
@@ -279,7 +314,7 @@ class BaseTrainer:
                     and kern.numel() >= min_kernel):
                 self._fused_inner = make(
                     self.model, self.tx, self.schedule, self.criterion,
-                    self._apply_updates)
+                    self._apply_updates, group=self._dp_group)
                 self.log.info(
                     f"fused readout update on {tuple(kern.shape)} kernel "
                     f"(rank-B factored stats, no materialized gradient)")
@@ -327,6 +362,7 @@ class BaseTrainer:
         and updates every leaf outside the frozen paths."""
         tx, criterion = self.tx, self.criterion
         apply_fn, frozen = self._apply_updates, self._frozen_paths
+        group = self._dp_group
 
         def train_step(params, opt_state, inputs, ap, n_valid, seed):
             leaves = {k: v.detach().requires_grad_(True)
@@ -337,10 +373,12 @@ class BaseTrainer:
             grads = dict(zip(names, torch.autograd.grad(
                 loss, [leaves[k] for k in names])))
             with torch.no_grad():
+                grads, loss = mh.sum_grads_and_loss(grads, loss.detach(),
+                                                    group)
                 trained = {k: params[k] for k in names}
                 updates, opt_state = tx.update(grads, opt_state, trained)
                 params = {**params, **apply_fn(trained, updates, seed)}
-            return params, opt_state, loss.detach()
+            return params, opt_state, loss
 
         return train_step
 
@@ -451,7 +489,115 @@ class BaseTrainer:
                                      step_fn))
         return self._epoch_result(losses)
 
+    def _train_epoch_multihost(self) -> dict:
+        """One streamed epoch across ranks: each rank drops its ragged tail
+        batch (DDP drop_last), the ranks agree on the common step count,
+        and every step is this rank's rows of the global batch."""
+        bs = self.config.training.train_batch_size
+        # the loader batches its shuffled shard in order: full batches are
+        # num_trials // bs, known without reading the epoch
+        steps = mh.global_min(self.train_loader.num_trials // bs)
+        n_valid = bs * mh.process_count()
+        self._init_if_needed()
+        losses = []
+        stream = prefetch_to_device(self.train_loader, self.device, depth=2,
+                                    transform=self._host_batch)
+        try:
+            for batch in stream:
+                if len(losses) >= steps:
+                    break
+                if batch["inputs"].shape[0] < bs:   # ragged tail
+                    continue
+                losses.append(self._step(batch["inputs"], batch["ap"],
+                                         n_valid))
+        finally:
+            stream.close()
+        if not losses:   # no rank has a full batch
+            return {"train_loss": float("nan"),
+                    "lr": float(self.schedule(self.global_step))}
+        return self._epoch_result(losses)
+
+    def _stage_device_dataset_multihost(self) -> bool:
+        """The rank-local trial cache: each rank stages its own shard once
+        on its device and every later epoch gathers batches there with a
+        rank-local index (no collective); the only per-step host-to-device
+        copy is the index (``_cached_mh_h2d_bytes``). Every rank keeps the
+        same row count R (the smallest shard's; the rest of a shard is
+        dropped, as DDP's drop_last) and shuffles within its block. Falls
+        back to streaming, agreed by every rank (``global_any``), when a
+        block is shared by ranks, the global batch does not divide the data
+        axis, a shard is too small or any rank would pass the cap."""
+        if self._dev_data is not None:
+            return True
+        if not self._device_cache_enabled or getattr(
+                self, "_mh_cache_failed", False):
+            return False
+        n_data = self.mesh.shape["data"]
+        bs_global = (self.config.training.train_batch_size
+                     * mh.process_count())
+        mine, g_min, private = mh.data_axis_blocks(self.mesh)
+        if not private or g_min == 0 or bs_global % n_data:
+            self.log.info(
+                f"multihost trial cache unavailable (blocks private: "
+                f"{private}, min blocks/rank: {g_min}, global batch "
+                f"{bs_global} vs data axis {n_data}); streaming")
+            self._mh_cache_failed = True
+            return False
+        rpb = bs_global // n_data   # rows each block gives a step
+        xs, aps = [], []
+        for batch in self.train_loader:
+            xs.append(self._assemble_inputs(batch))
+            aps.append(np.asarray(batch["ap"], dtype=np.float32))
+        g = len(mine)
+        n_local = sum(x.shape[0] for x in xs)
+        r_block = mh.global_min(n_local // g if g else 0)
+        over = False
+        if r_block >= rpb:
+            x_loc = np.concatenate(xs, axis=0)[: g * r_block]
+            a_loc = np.concatenate(aps, axis=0)[: g * r_block]
+            over = x_loc.nbytes + a_loc.nbytes > self._device_cache_gb * 1e9
+        if mh.global_any(r_block < rpb or over):
+            self.log.info(
+                f"multihost trial cache fallback (rows/block {r_block} vs "
+                f"{rpb} needed, over-cap: {over}); streaming per step")
+            self._mh_cache_failed = True
+            return False
+        self._init_if_needed()
+        self._staged_bytes = x_loc.nbytes + a_loc.nbytes
+        self._dev_data = (self._to_device(x_loc), self._to_device(a_loc))
+        self._mh_cache = {"R": r_block, "g": g, "rpb": rpb,
+                          "steps": r_block // rpb}
+        self._block_take = mh.make_block_local_take()
+        self._cached_mh_h2d_bytes = 0
+        self.log.info(
+            f"staged {self._staged_bytes / 1e6:.0f} MB of local trials on "
+            f"{self.device} ({g} block x {r_block} rows; "
+            f"{self._mh_cache['steps']} steps/epoch); multihost epochs are "
+            f"now transfer-free")
+        return True
+
+    def _train_epoch_cached_multihost(self) -> dict:
+        x_all, ap_all = self._dev_data
+        info = self._mh_cache
+        r_block, g, rpb = info["R"], info["g"], info["rpb"]
+        # fresh within-block permutations every epoch (rank-local stream;
+        # the step count is fixed, so the streams may differ across ranks)
+        perms = np.stack([self._rng.permutation(r_block) for _ in range(g)])
+        n_valid = self.mesh.shape["data"] * rpb
+        losses = []
+        for s in range(info["steps"]):
+            idx = np.ascontiguousarray(
+                perms[:, s * rpb:(s + 1) * rpb].reshape(-1), dtype=np.int32)
+            self._cached_mh_h2d_bytes += idx.nbytes
+            x, ap = self._block_take(x_all, ap_all, self._to_device(idx))
+            losses.append(self._step(x, ap, n_valid))
+        return self._epoch_result(losses)
+
     def train_epoch(self) -> dict:
+        if self._multihost:
+            if self._stage_device_dataset_multihost():
+                return self._train_epoch_cached_multihost()
+            return self._train_epoch_multihost()
         if self._stage_device_dataset():
             return self._train_epoch_cached()
         self._init_if_needed()
@@ -496,8 +642,16 @@ class BaseTrainer:
         self._profile_dir = None
 
     def _stage_eval_batch(self, batch):
+        """(inputs, ap, n_valid, host ap, eids); multi-process, ``inputs``
+        is this rank's block of the batch padded to the data axis."""
         self._init_if_needed()
-        inputs = self._to_device(self._assemble_inputs(batch))
+        x = self._assemble_inputs(batch)
+        if self._multihost:
+            pad = (-x.shape[0]) % self.mesh.shape["data"]
+            if pad:
+                x = np.concatenate([x, np.repeat(x[-1:], pad, 0)], 0)
+            x, = mh.replicated_rows_to_global(self.mesh, x)
+        inputs = self._to_device(x)
         if self._frozen_split:
             # frozen features, not raw video: evals rerun only the head
             with torch.no_grad():
@@ -537,12 +691,15 @@ class BaseTrainer:
         # full arrays are fetched for the test_results.npy contract and for
         # multi-session grouping.
         light = (phase != "test" and len(split_eids) == 1
+                 and not self._multihost
                  and not self.config.get("save_plot"))
         session = {e: {"gt": [], "preds": []} for e in split_eids}
         losses, dev_outs, dev_gts = [], [], []
         eval_fn = self.model.head if self._frozen_split else self.model
         for x, ap_d, n_valid, ap, eids in self._eval_batches(loader, phase):
             out = eval_fn(x)
+            if self._multihost:   # every rank's rows, in rank order
+                out = mh.gather_rows(out, self._dp_group)[:n_valid]
             losses.append(poisson_nll_mean(out, ap_d, n_valid))
             if light:
                 dev_outs.append(out[:n_valid])
@@ -618,15 +775,22 @@ class BaseTrainer:
                         self._best_params = {k: v.clone() for k, v
                                              in self.params.items()}
                         self._best_epoch = epoch
-                        if epoch - self._last_best_flush >= self._save_every:
+                        # multi-process: no mid-train background flush;
+                        # the stash is written once after the loop
+                        if (not self._multihost and epoch
+                                - self._last_best_flush >= self._save_every):
                             # fetch and write in the background: training
                             # continues
                             self.save_model("best", epoch, block=False)
                             self._last_best_flush = epoch
                         self._plot_figs(eval_res, epoch=epoch)
+                if self._multihost:
+                    line["replica_checksum"] = self._check_replicas()
                 self.log.info(f"{line}")
                 self.tracker.log(line, step=self.global_step)
-                if preempted:
+                # a TERM may reach only some ranks: agree before anyone
+                # diverges into the save barrier
+                if mh.global_any(bool(preempted)):
                     # SIGTERM / Ctrl-C: persist the true-resume checkpoint;
                     # a died best flush must not abort that
                     wait_for_checkpoints(raise_errors=False)
@@ -642,10 +806,11 @@ class BaseTrainer:
         # eval; the best re-save is skipped when the cadence flush already
         # wrote exactly the best epoch. Both capture their tensors before
         # test_model swaps the best params in.
+        final_async = not self._multihost
         if self._best_params is not None \
                 and self._last_best_flush != self._best_epoch:
-            self.save_model("best", self._best_epoch, block=False)
-        self.save_model("last", num_epochs - 1, block=False)
+            self.save_model("best", self._best_epoch, block=not final_async)
+        self.save_model("last", num_epochs - 1, block=not final_async)
         self.log.info(f"trained {num_epochs} epochs in {time.time()-t0:.1f}s; "
                       f"best eval_bps={best_bps} @ epoch {best_epoch}")
 
@@ -655,7 +820,9 @@ class BaseTrainer:
             self._plot_figs(test_res, test=True)
             test_res["test_res"].update(best_eval_loss=best_loss,
                                         best_eval_bps=best_bps)
-            np.save(os.path.join(self.log_dir, "test_results.npy"), test_res)
+            if self._is_main:
+                np.save(os.path.join(self.log_dir, "test_results.npy"),
+                        test_res)
             self.log.info(f"{test_res['test_res']}")
         return self._result(best_bps, best_epoch,
                             (test_res or {}).get("test_res"))
@@ -671,7 +838,15 @@ class BaseTrainer:
                 "features_staged": self._features_staged,
                 "encode_seconds": self.encode_seconds,
                 "trace_paths": list(self.trace_paths),
+                "replica_checksums": list(self.replica_checksums),
                 "log_dir": self.log_dir, **extra}
+
+    def _check_replicas(self) -> str:
+        """The ranks' common parameter checksum as hex; raises when the
+        replicas, which must stay bitwise equal, drifted apart."""
+        self.replica_checksums.append(
+            mh.check_replicas(self.params, self._dp_group))
+        return f"{self.replica_checksums[-1]:016x}"
 
     def test_model(self) -> Optional[dict]:
         if self._best_params is not None:
@@ -689,7 +864,7 @@ class BaseTrainer:
         """``save_plot``: the first session's trial-averaged gt/pred
         heatmaps and the first 5 neurons' traces, as PNGs beside the
         checkpoints and as the tracker's figure records."""
-        if not self.config.get("save_plot"):
+        if not self.config.get("save_plot") or not self._is_main:
             return
         from video_spike_torch.viz import pyplot
         from video_spike_torch.viz.plots import plot_gt_pred, plot_neurons_r2
@@ -753,6 +928,12 @@ class BaseTrainer:
         if name == "last":
             tree["opt_state"] = self._opt_state_tree()
             tree["global_step"] = self.global_step
+        if self._multihost:
+            # rank 0 writes (the replicas are equal); every rank waits
+            if self._is_main:
+                save_checkpoint(self.log_dir, f"model_{name}", tree)
+            mh.barrier()
+            return
         if block:
             save_checkpoint(self.log_dir, f"model_{name}", tree)
             return
@@ -761,8 +942,10 @@ class BaseTrainer:
         save_checkpoint_async(self.log_dir, f"model_{name}", tree)
 
     def resume(self, name: str = "last") -> bool:
-        """Restore params + optimizer state + epoch from ``model_last``."""
+        """Restore params + optimizer state + epoch from ``model_last``
+        (every rank reads rank 0's file, after a barrier)."""
         wait_for_checkpoints()
+        mh.barrier()
         if not checkpoint_exists(self.log_dir, f"model_{name}"):
             return False
         self._init_if_needed()

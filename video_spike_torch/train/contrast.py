@@ -38,8 +38,29 @@ Counterpart of ``video_spike_tpu/train/contrast.py`` (reference
 
 The step's losses (every 50 steps) and each validation go to
 ``<log_dir>/metrics.jsonl`` (``core/tracking``, the JAX trainer's keys and
-steps). Not in this slice (ROADMAP.md): the device mesh, multihost and the
-lr / batch scaling by the data axis (item 14).
+steps).
+
+Under a process group (``core/runtime``) the ranks train data-parallel on
+the mesh's ``data`` axis, with the JAX trainer's semantics:
+
+- the learning rate scales by the data axis (``scale_lr_by_data``, the
+  reference's lr × world_size rule); the loader's batch is the per-rank
+  batch, which is the per-device batch with one device a rank, so it is not
+  scaled;
+- each rank iterates ``order[rank::world]`` of the epoch's order, drawn
+  from (seed, epoch), with pos/neg draws keyed by (seed, epoch, rank,
+  batch), drops its ragged tail and runs the step count the ranks agree on
+  (``global_min``); the masking noise is keyed by (seed, step, rank);
+- a step's loss is the global batch's: each rank gathers every rank's
+  embeddings (its own rows keep their gradient), and batch-mean scalars
+  (a reconstruction loss) are averaged over the ranks, so InfoNCE sees the
+  negatives of the whole global batch as in the JAX package; the
+  gradients are all-reduced with SUM;
+- preemption and the periodic ``last_model`` save are agreed with
+  ``global_any`` at the logging cadence; rank 0 alone writes checkpoints
+  and sidecars, synchronously, and every rank reads after a barrier;
+- validation and ``transform()`` split each batch's frames over the ranks
+  and gather the embeddings, so every rank fits the same nested RRR.
 """
 
 from __future__ import annotations
@@ -61,6 +82,8 @@ from video_spike_torch.data.contrast import device_frame_transform
 from video_spike_torch.data.prefetch import background
 from video_spike_torch.ops.contrastive import loss_fn_
 from video_spike_torch.ops.optim import AdamW, apply_updates
+from video_spike_torch.parallel import multihost as mh
+from video_spike_torch.parallel.mesh import make_mesh
 from video_spike_torch.train.checkpoint import (
     checkpoint_exists,
     load_checkpoint,
@@ -72,6 +95,7 @@ from video_spike_torch.train.checkpoint import (
 from video_spike_torch.train.rrr_pipeline import train_rrr
 
 _MASK63 = (1 << 63) - 1
+_RANK_SALT = 0x632BE59BD9B4E019
 
 
 class ContrastTrainer:
@@ -87,6 +111,10 @@ class ContrastTrainer:
                  save_every_min: Optional[float] = 10.0,
                  flush_best: bool = True, device="cuda"):
         self.device = resolve_device(device)
+        self.mesh = make_mesh()
+        self._dp_group = self.mesh.group("data")
+        self._multihost = mh.is_multihost()
+        self._is_main = mh.process_index() == 0
         self.model = model
         self.data_loader = data_loader
         self.val_data_loader = val_data_loader
@@ -106,7 +134,13 @@ class ContrastTrainer:
         os.makedirs(self.log_dir, exist_ok=True)
 
         opt = optimizer_config or {}
-        self.tx = AdamW(opt.get("lr", 1e-4), weight_decay=opt.get("wd", 0.01),
+        lr = opt.get("lr", 1e-4)
+        n_data = self.mesh.shape["data"]
+        if n_data > 1 and opt.get("scale_lr_by_data", True):
+            lr = lr * n_data
+            self.log.info(f"data axis {n_data}: lr {opt.get('lr', 1e-4)} -> "
+                          f"{lr} (reference lr x world_size rule)")
+        self.tx = AdamW(lr, weight_decay=opt.get("wd", 0.01),
                         eps=opt.get("eps", 1e-8))
         self.tracker = Tracker(self.log_dir, project="video-ssl",
                                name=f"{eid[:5]}_{self.model_name}")
@@ -170,11 +204,32 @@ class ContrastTrainer:
         self._initialized = True
 
     def _next_generator(self) -> torch.Generator:
-        """The masking generator of the next step, seeded from (seed, step)
-        like the JAX trainer's ``fold_in(key, step)``."""
+        """The masking generator of the next step, seeded from (seed, step,
+        rank) like the JAX trainer's ``fold_in(key, step)``."""
         self._step_count += 1
         return self._mask_gen.manual_seed(
-            (self._seed * 0x9E3779B97F4A7C15 + self._step_count) & _MASK63)
+            (self._seed * 0x9E3779B97F4A7C15 + self._step_count
+             + mh.process_index() * _RANK_SALT) & _MASK63)
+
+    def _global_outputs(self, out: Dict[str, torch.Tensor]) -> Dict:
+        """This rank's model outputs as the global batch's: every rank's
+        rows in rank order (only this rank's keep their gradient) and each
+        scalar as the mean over the ranks (its gradient 1/world here), so
+        the loss is the global batch's and the ranks' gradients sum to its
+        gradient. Identity in one process."""
+        if self._dp_group is None:
+            return out
+        world, r = mh.process_count(), mh.process_index()
+        glob = {}
+        for k, v in out.items():
+            if v.ndim == 0:
+                total = mh.gather_rows(v.detach()[None], self._dp_group).sum()
+                glob[k] = v / world + (total - v.detach()) / world
+                continue
+            b = v.shape[0]
+            rows = mh.gather_rows(v.detach(), self._dp_group)
+            glob[k] = torch.cat([rows[:r * b], v, rows[(r + 1) * b:]])
+        return glob
 
     def _train_step(self, trip: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One AdamW step on a uint8 triplet (3, B, C, H, W) — or, for
@@ -183,8 +238,8 @@ class ContrastTrainer:
         gen = self._next_generator()
         size = self.image_size
         if self._is_mae:
-            out = self.model(device_frame_transform(trip, size),
-                             generator=gen)
+            out = self._global_outputs(self.model(
+                device_frame_transform(trip, size), generator=gen))
             loss, aux = self.criterion(out, None, None)["loss"], {}
         else:
             # (3, B, ...) -> (3B, ...): one large batch with the
@@ -193,8 +248,9 @@ class ContrastTrainer:
             x = device_frame_transform(trip.reshape(-1, *trip.shape[2:]),
                                        size)
             out = self.model(x, generator=gen)
-            ref, pos, neg = ({k: v[i * b:(i + 1) * b] if v.ndim > 0 else v
-                              for k, v in out.items()} for i in range(3))
+            ref, pos, neg = (self._global_outputs(
+                {k: v[i * b:(i + 1) * b] if v.ndim > 0 else v
+                 for k, v in out.items()}) for i in range(3))
             loss_dict = self.criterion(ref, pos, neg)
             loss = loss_dict["loss"]
             aux = {k: v.detach() for k, v in loss_dict.items() if k != "loss"}
@@ -208,6 +264,8 @@ class ContrastTrainer:
         grads = {k: g if g is not None else torch.zeros_like(p)
                  for (k, p), g in zip(named.items(), grads)}
         with torch.no_grad():
+            # each rank's gradient holds its own rows' share of the loss
+            grads = mh.sum_across(grads, self._dp_group)
             params = self.params
             updates, self.opt_state = self.tx.update(grads, self.opt_state,
                                                      params)
@@ -273,28 +331,52 @@ class ContrastTrainer:
 
     def _epoch_batches(self, skip: int = 0, index: bool = False):
         """One pass over the pretrain loader; ``skip`` (mid-epoch resume)
-        fast-forwards past the first ``skip`` batches while consuming their
-        draws, so the sampling stream stays aligned."""
-        if skip == 0 and not index:
-            return iter(self.data_loader)
+        fast-forwards past the first ``skip`` batches while keeping the
+        draws aligned. Multi-process: this rank's stride of the epoch,
+        full batches only, as many as every rank has (agreed here, on the
+        calling thread: it is a collective)."""
         ds = self.data_loader.dataset
+        bs = self.data_loader.batch_size
+        shuffle = getattr(self.data_loader, "shuffle", True)
         fn = ds.iter_index_batches if index else ds.iter_batches
-        return fn(self.data_loader.batch_size,
-                  shuffle=getattr(self.data_loader, "shuffle", True),
-                  skip=skip)
+        if not self._multihost:
+            if skip == 0 and not index:
+                return iter(self.data_loader)
+            return fn(bs, shuffle=shuffle, skip=skip)
+        rank, world = mh.process_index(), mh.process_count()
+        local_n = (len(ds) - rank + world - 1) // world
+        steps = mh.global_min(local_n // bs)
+        if steps == 0:
+            raise ValueError(
+                f"local frame shard ({local_n}) smaller than the local "
+                f"batch size ({bs}); shrink the batch or the process count")
+        # a rank's stride is full batches and at most one ragged tail, so
+        # the first `skip` <= steps batches are full ones
+        remaining = max(steps - skip, 0)
+
+        def full_batches():
+            done = 0
+            for b in fn(bs, shuffle=shuffle, rank=rank, world=world,
+                        skip=skip):
+                if done >= remaining:
+                    break
+                if np.asarray(b["ref"]).shape[0] < bs:
+                    continue   # ragged tail (drop-last)
+                done += 1
+                yield b
+        return full_batches()
 
     def _staged_epoch_stream(self, skip: int = 0, depth: int = 2):
         """Producer-thread pipeline for one epoch: host sampling and the
         host-to-device copy run ``depth`` batches ahead of the step."""
         cached = self._frame_cache is not None
+        batches = self._epoch_batches(skip=skip, index=cached)
 
         def staged():
-            if cached:
-                for ib in self._epoch_batches(skip=skip, index=True):
-                    yield self._stage_index_batch(ib)
-            else:
-                for b in self._epoch_batches(skip=skip):
-                    yield self._stage_step_batch(b)
+            stage = (self._stage_index_batch if cached
+                     else self._stage_step_batch)
+            for b in batches:
+                yield stage(b)
 
         return background(staged(), depth=depth)
 
@@ -345,8 +427,21 @@ class ContrastTrainer:
                         self._pending_losses.append(logs["loss"])
                         if current_step % 50 == 0:
                             self._log_losses(logs)
+                            if self._multihost:
+                                # agreed at the cadence: every rank enters
+                                # the save (or stops), or none does
+                                if mh.global_any(bool(preempted)):
+                                    stop = True
+                                elif mh.global_any(self._periodic_save_due(
+                                        current_step + 1)):
+                                    self._save_last_periodic(
+                                        current_step + 1)
                         current_step += 1
-                        if current_step >= self.max_steps or preempted:
+                        if current_step >= self.max_steps or stop:
+                            break
+                        if self._multihost:
+                            continue
+                        if preempted:
                             break
                         if self._periodic_save_due(current_step):
                             self._save_last_periodic(current_step)
@@ -354,9 +449,11 @@ class ContrastTrainer:
                     # join the producer thread now: the next sampler
                     # snapshot (and the sidecar) must see a quiescent stream
                     stream.close()
-                if preempted:
+                # the pass boundary: agree on a preemption before anyone
+                # diverges into the validation or a save
+                stop = stop or mh.global_any(bool(preempted))
+                if stop:
                     # skip the nested-RRR validation inside the grace window
-                    stop = True
                     break
                 if (self.validate_every is not None
                         and current_step - last_validation < self.validate_every
@@ -430,13 +527,17 @@ class ContrastTrainer:
         newer checkpoint: resume() checks the step stamp)."""
         state = self._sidecar_state(step)
         try:
-            save_checkpoint(self.log_dir, "last_model", {
-                "params": self.params, "opt_state": self.opt_state,
-                "step": step, "best_bps": float(self._best_bps)})
+            if self._is_main:   # multi-process: the replicas are equal
+                save_checkpoint(self.log_dir, "last_model", {
+                    "params": self.params, "opt_state": self.opt_state,
+                    "step": step, "best_bps": float(self._best_bps)})
         except OSError as e:
             self.log.error(f"Error saving last_model: {e}")
+            mh.barrier()
             return
-        self._write_sidecar(state)
+        if self._is_main:
+            self._write_sidecar(state)
+        mh.barrier()
 
     def _write_sidecar(self, state: Optional[Dict]) -> None:
         try:
@@ -463,6 +564,9 @@ class ContrastTrainer:
         self._last_save_t = time.time()
         self._last_save_step = step
         self.log.info(f"periodic last_model flush @ step {step}")
+        if self._multihost:   # synchronous, in program order on every rank
+            self._save_last(step)
+            return
         state = self._sidecar_state(step)
         tree = {"params": snapshot(self.params),
                 "opt_state": snapshot(self.opt_state),
@@ -475,7 +579,14 @@ class ContrastTrainer:
         """Write the stashed best params in the background and then
         ``best_model.meta.json`` (best bps + step). The meta follows the
         checkpoint, so it can understate a best on disk but never claim one
-        that is not; resume() restores the running best from it."""
+        that is not; resume() restores the running best from it.
+        Multi-process: written synchronously at the validation boundary,
+        where every rank agreed on the new best."""
+        if self._multihost:
+            if self._save_model("best_model"):
+                self._best_on_disk = step
+                self._write_best_meta(self._best_bps, step)
+            return
         bps = self._best_bps
 
         def landed():
@@ -486,6 +597,8 @@ class ContrastTrainer:
                               {"params": self._best_params}, after=landed)
 
     def _write_best_meta(self, bps: float, step: int) -> None:
+        if not self._is_main:
+            return
         try:
             self._write_json("best_model.meta.json",
                              {"best_bps": float(bps), "step": int(step)})
@@ -496,8 +609,12 @@ class ContrastTrainer:
         """Restore params + AdamW state + step from ``last_model`` and
         continue ``fit()`` from there; with the sampler sidecar present the
         data stream resumes mid-epoch bit-exactly (sampler state restored,
-        consumed batches fast-forwarded draw for draw)."""
+        consumed batches fast-forwarded draw for draw). Every rank reads
+        rank 0's files, after a barrier; the multi-process draws are keyed
+        by (seed, epoch, rank, batch), so only the epoch counter is
+        restored."""
         wait_for_checkpoints()
+        mh.barrier()
         if not checkpoint_exists(self.log_dir, name):
             return False
         self._init_if_needed()
@@ -538,7 +655,8 @@ class ContrastTrainer:
                     f"match checkpoint step {self._start_step}; ignoring it "
                     f"(epoch-boundary resume with a fresh shuffle)")
             else:
-                ds.set_sampler_state(state["epoch_start"])
+                ds.set_sampler_state(state["epoch_start"],
+                                     restore_rng=not self._multihost)
                 self._resume_skip = int(state["consumed"])
                 self.log.info(f"sampler resumed mid-epoch: skipping "
                               f"{self._resume_skip} consumed batches")
@@ -550,11 +668,14 @@ class ContrastTrainer:
         params = (self._best_params if name == "best_model"
                   and self._best_params is not None else self.params)
         try:
-            save_checkpoint(self.log_dir, name, {"params": params})
-            return True
+            if self._is_main:   # multi-process: rank 0 writes
+                save_checkpoint(self.log_dir, name, {"params": params})
+            ok = True
         except OSError as e:  # keep training on checkpoint failure
             self.log.error(f"Error saving the model: {e}")
-            return False
+            ok = False
+        mh.barrier()
+        return ok
 
     def _load_model(self, name: str) -> bool:
         wait_for_checkpoints()
@@ -594,12 +715,20 @@ class ContrastTrainer:
         return {"val_bps": float(np.nanmean(rrr_result[self.eid]["bps"]))}
 
     def _stage_batch(self, batch):
-        """One transform batch -> (uint8 frames on the device, neural)."""
+        """One transform batch -> (uint8 frames on the device, valid frame
+        count, neural); multi-process, the frames are this rank's block of
+        the batch padded to the data axis."""
         ref = np.asarray(batch["ref"])
         if ref.ndim == 5:  # (B, T, C, H, W) trials -> a frame batch
             ref = ref.reshape(-1, *ref.shape[2:])
+        n_valid = ref.shape[0]
+        if self._multihost:
+            pad = (-n_valid) % self.mesh.shape["data"]
+            if pad:
+                ref = np.concatenate([ref, np.repeat(ref[-1:], pad, 0)], 0)
+            ref, = mh.replicated_rows_to_global(self.mesh, ref)
         neural = np.asarray(batch["neural"]) if "neural" in batch else None
-        return self._to_device(ref), neural
+        return self._to_device(ref), n_valid, neural
 
     def _transform_batches(self, data_loader):
         """Stage a transform loader's uint8 frames on the device once (the
@@ -636,12 +765,13 @@ class ContrastTrainer:
             else:
                 self._load_model("best_model")
         neurals, outs = [], []
-        for frames, neural in self._transform_batches(data_loader):
+        for frames, n_valid, neural in self._transform_batches(data_loader):
             out = self.model(device_frame_transform(frames, self.image_size),
                              mask_ratio=0.0)
             if "z" not in out:
                 raise KeyError("No embedding found in the model output!")
-            outs.append(out["z"])               # fetched after all batches
+            # every rank's rows, in rank order; fetched after all batches
+            outs.append(mh.gather_rows(out["z"], self._dp_group)[:n_valid])
             if neural is not None:
                 neurals.append(neural)
         feats = torch.cat(outs, dim=0).float().cpu().numpy()

@@ -34,8 +34,15 @@ reports bits per spike and R² per session over its real neurons only.
   (``core/tracking``); ``save_plot`` fetches the eval and test outputs and
   writes ``best_{trial,neuron}_<eid5>_<tag>.png`` per session at each new
   best epoch and for the test split, each also a figure record.
-
-Not in this slice (ROADMAP.md): the device mesh and multihost (item 14).
+- Under a process group (``core/runtime``) the ranks train data-parallel
+  on the mesh's ``data`` axis (``training.mesh``): each rank streams its
+  shard of every session (``parallel/multihost``), drops ragged tails, and
+  runs the step count the ranks agree on (``global_min``); a step's loss
+  divides by the global valid-element count and the gradients and loss are
+  all-reduced with SUM. Eval rows are split over the ranks and the
+  predictions gathered; a preemption is agreed with ``global_any``; rank 0
+  alone writes, synchronously, and every rank reads after a barrier; the
+  ranks compare parameter checksums after each epoch.
 """
 
 from __future__ import annotations
@@ -55,6 +62,8 @@ from video_spike_torch.data.dataset import SessionDataset, split_dataset
 from video_spike_torch.ops.metrics import device_eval_metrics, metrics_list
 from video_spike_torch.ops.optim import apply_updates, make_optimizer
 from video_spike_torch.ops.poisson import poisson_nll
+from video_spike_torch.parallel import multihost as mh
+from video_spike_torch.parallel.mesh import make_mesh
 from video_spike_torch.train.checkpoint import (
     checkpoint_exists,
     load_checkpoint,
@@ -66,25 +75,41 @@ from video_spike_torch.train.checkpoint import (
 
 def masked_poisson_nll(log_rates: torch.Tensor, targets: torch.Tensor,
                        neuron_mask: torch.Tensor,
-                       n_valid_rows) -> torch.Tensor:
+                       n_valid_rows, group=None) -> torch.Tensor:
     """Mean Poisson NLL over (valid trial, any bin, valid neuron) elements.
-    neuron_mask: (B, N_max) 0/1; n_valid_rows: the leading valid rows."""
+    neuron_mask: (B, N_max) 0/1; n_valid_rows: the leading valid rows. With
+    a data ``group`` the element count is the group's: this rank's share of
+    the global mean."""
     nll = poisson_nll(log_rates, targets)
     b, t = log_rates.shape[:2]
     rows = (torch.arange(b, device=nll.device) < n_valid_rows).to(nll.dtype)
     mask = rows[:, None, None] * neuron_mask[:, None, :]  # (B, 1, N)
     # mask broadcasts over the T axis, so the element count is sum(mask) * T
-    return (nll * mask).sum() / torch.clamp(mask.sum() * t, min=1.0)
+    count = mh.all_sum(mask.sum() * t, group)
+    return (nll * mask).sum() / torch.clamp(count, min=1.0)
 
 
 class MultiSessionTrainer:
     """Mixed-session staged batches (or single-session round-robin
-    streaming) through one train step on one device."""
+    streaming) through one train step on one device, or data-parallel
+    across the ranks of a process group."""
 
     def __init__(self, model, config, eids: Sequence[str], data_dir: str,
                  log_dir: str = "results_multi", seed: int = 42,
                  max_neurons: Optional[int] = None, device="cuda"):
         self.device = resolve_device(device)
+        mesh_cfg = config.training.get("mesh", {}) or {}
+        mesh = make_mesh(n_data=mesh_cfg.get("data"),
+                         n_model=mesh_cfg.get("model", 1))
+        if mesh.shape["model"] > 1:
+            raise NotImplementedError(
+                "training with a model axis > 1 is not ported (ROADMAP.md); "
+                "set training.mesh.model to 1")
+        self.mesh = mesh
+        self._dp_group = mesh.group("data")
+        self._multihost = mh.is_multihost()
+        self._is_main = mh.process_index() == 0
+        self.replica_checksums: list = []
         self.model = model
         self.config = config
         self.eids = list(eids)
@@ -110,8 +135,10 @@ class MultiSessionTrainer:
         for eid in self.eids:
             split = split_dataset(data_dir, eid=eid, seed=seed)
             self.splits[eid] = split
+            # this rank's training shard; val/test stay whole on every rank
             self.train_loaders[eid] = SessionDataset(
-                split["train"], bs, shuffle=True, seed=seed, modalities=mods)
+                mh.shard_files_for_process(split["train"]), bs, shuffle=True,
+                seed=seed, modalities=mods)
             self.val_loaders[eid] = SessionDataset(
                 split["val"], bs, modalities=mods)
             self.test_loaders[eid] = SessionDataset(
@@ -121,8 +148,10 @@ class MultiSessionTrainer:
             self.n_neurons[eid] = probe["ap"].shape[2]
         self.max_neurons = max_neurons or max(self.n_neurons.values())
 
+        # global steps an epoch: each rank takes one per local batch
         steps_per_epoch = sum(len(split["train"]) // bs
                               for split in self.splits.values())
+        steps_per_epoch //= mh.process_count()
         self.tx, self.schedule = make_optimizer(
             config, steps_per_epoch * config.training.num_epochs)
         self.opt_state = None
@@ -177,16 +206,18 @@ class MultiSessionTrainer:
     def _train_step(self, video, ap, sids, nmask, n_valid) -> torch.Tensor:
         named = dict(self.model.named_parameters())
         out = self.model(video, sids)
-        loss = masked_poisson_nll(out, ap, nmask, n_valid)
+        loss = masked_poisson_nll(out, ap, nmask, n_valid, self._dp_group)
         grads = dict(zip(named, torch.autograd.grad(loss,
                                                     list(named.values()))))
         with torch.no_grad():
+            grads, loss = mh.sum_grads_and_loss(grads, loss.detach(),
+                                                self._dp_group)
             params = self.params
             updates, self.opt_state = self.tx.update(grads, self.opt_state,
                                                      params)
             self._set_params(apply_updates(params, updates))
         self.global_step += 1
-        return loss.detach()
+        return loss
 
     # ------------------------------------------------------------------
     # batches
@@ -282,7 +313,32 @@ class MultiSessionTrainer:
             losses.append(self.staged_step(idx, n_valid))
         return self._epoch_result(losses)
 
+    def _train_epoch_multihost(self) -> dict:
+        """One streamed epoch across ranks: each rank round-robins its
+        session shards and drops ragged tails (DDP drop_last); the ranks
+        agree on the step count and every step is this rank's rows of the
+        global mixed-session batch."""
+        bs = self.config.training.train_batch_size
+        # the loaders batch their shards in order: full batches per session
+        # are num_trials // bs, known without reading the epoch
+        steps = mh.global_min(sum(dl.num_trials // bs
+                                  for dl in self.train_loaders.values()))
+        self._init_if_needed()
+        losses = []
+        for eid, batch in self._interleaved_batches():
+            if len(losses) >= steps:
+                break
+            if np.asarray(batch["ap"]).shape[0] < bs:   # ragged tail
+                continue
+            losses.append(self._train_step(*self._pad_batch(batch, eid, bs)))
+        if not losses:   # no rank has a full batch
+            return {"train_loss": float("nan"),
+                    "lr": float(self.schedule(self.global_step))}
+        return self._epoch_result(losses)
+
     def train_epoch(self) -> dict:
+        if self._multihost:   # rank-local shards stream (JAX policy)
+            return self._train_epoch_multihost()
         if self._stage_device_dataset():
             return self._train_epoch_cached()
         self._init_if_needed()
@@ -298,12 +354,16 @@ class MultiSessionTrainer:
         """``need_ap=False`` drops the padded device ``ap`` from the yielded
         item: only the light on-device metrics read it."""
         self._init_if_needed()
+        n_data = self.mesh.shape["data"]
         for eid, loader in loaders.items():
             if loader.num_trials == 0:
                 continue
+            rows = -(-loader.batch_size // n_data) * n_data
             for batch in loader:
-                video, ap, sids, _, b = self._pad_batch(batch, eid,
-                                                        loader.batch_size)
+                video, ap, sids, _, b = self._pad_batch(batch, eid, rows)
+                if self._multihost:   # this rank's block of the rows
+                    video, sids = mh.replicated_rows_to_global(
+                        self.mesh, video, sids)
                 yield (eid, video, sids, b, np.asarray(batch["ap"]),
                        ap if need_ap else None)
 
@@ -337,10 +397,12 @@ class MultiSessionTrainer:
         per_session = {}
         gt_out, pred_out = {}, {}
         sess_out: Dict[str, list] = {}
-        light = not return_outputs
+        light = not return_outputs and not self._multihost
         for eid, video, sids, b, ap_np, ap_d in self._eval_batches(
                 loaders, phase, need_ap=light):
             out = self.model(video, sids)
+            if self._multihost:   # every rank's rows, in rank order
+                out = mh.gather_rows(out, self._dp_group)
             sess_out.setdefault(eid, []).append((out, b, ap_np, ap_d))
             if ap_d is None:   # the split was staged for the host path
                 light = False
@@ -379,7 +441,8 @@ class MultiSessionTrainer:
     def _plot_figs(self, ev: dict, tag: str) -> None:
         """``save_plot``: each session's trial-averaged gt/pred heatmaps and
         first 5 neurons' traces, as PNGs and as figure records."""
-        if not self.config.get("save_plot") or "gt" not in ev:
+        if not self.config.get("save_plot") or "gt" not in ev \
+                or not self._is_main:
             return
         from video_spike_torch.viz import pyplot
         from video_spike_torch.viz.plots import plot_gt_pred, plot_neurons_r2
@@ -411,7 +474,9 @@ class MultiSessionTrainer:
         tree = {"params": self.params, "opt_state": self.opt_state,
                 "epoch": epoch, "global_step": self.global_step,
                 "best_bps": float(self._best_bps)}
-        if block:
+        if self._multihost:
+            self._save_rank0("model_last", tree)
+        elif block:
             save_checkpoint(self.log_dir, "model_last", tree)
         else:
             save_checkpoint_async(self.log_dir, "model_last", tree)
@@ -424,14 +489,25 @@ class MultiSessionTrainer:
                 or self._last_best_flush == self._best_epoch:
             return
         tree = {"params": self._best_params, "epoch": self._best_epoch}
-        if block:
+        if self._multihost:
+            self._save_rank0("model_best", tree)
+        elif block:
             save_checkpoint(self.log_dir, "model_best", tree)
         else:
             save_checkpoint_async(self.log_dir, "model_best", tree)
 
+    def _save_rank0(self, name: str, tree) -> None:
+        """Multi-process: rank 0 writes (the replicas are equal), in program
+        order, and every rank waits for the file."""
+        if self._is_main:
+            save_checkpoint(self.log_dir, name, tree)
+        mh.barrier()
+
     def resume(self, name: str = "last") -> bool:
-        """Restore params + optimizer state + epoch from ``model_last``."""
+        """Restore params + optimizer state + epoch from ``model_last``
+        (every rank reads rank 0's file, after a barrier)."""
         wait_for_checkpoints()
+        mh.barrier()
         if not checkpoint_exists(self.log_dir, f"model_{name}"):
             return False
         self._init_if_needed()
@@ -461,6 +537,11 @@ class MultiSessionTrainer:
                                 return_outputs=want_figs)
                 line = {"epoch": epoch, **tr, "eval_bps": ev["eval_bps"],
                         "eval_rsquared": ev["eval_rsquared"]}
+                if self._multihost:
+                    self.replica_checksums.append(
+                        mh.check_replicas(self.params, self._dp_group))
+                    line["replica_checksum"] = \
+                        f"{self.replica_checksums[-1]:016x}"
                 self.log.info(f"{line}")
                 self.tracker.log(line, step=self.global_step)
                 self.eval_history.append(line)
@@ -474,7 +555,9 @@ class MultiSessionTrainer:
                         self._flush_best(block=False)
                         self._last_best_flush = epoch
                     self._plot_figs(ev, tag=str(epoch))
-                if preempted:
+                # a TERM may reach only some ranks: agree before anyone
+                # diverges into the save barrier
+                if mh.global_any(bool(preempted)):
                     # SIGTERM / Ctrl-C: persist and return, no test eval
                     wait_for_checkpoints(raise_errors=False)
                     self._save_last(epoch)
@@ -498,10 +581,11 @@ class MultiSessionTrainer:
                           return_outputs=want_figs)
         wait_for_checkpoints()   # artifacts must exist before returning
         self._plot_figs(test, tag="test")
-        np.save(os.path.join(self.log_dir, "test_results.npy"),
-                {"test_res": {"test_bps": test["test_bps"],
-                              "test_rsquared": test["test_rsquared"]},
-                 "per_session": dict(test["per_session"])})
+        if self._is_main:
+            np.save(os.path.join(self.log_dir, "test_results.npy"),
+                    {"test_res": {"test_bps": test["test_bps"],
+                                  "test_rsquared": test["test_rsquared"]},
+                     "per_session": dict(test["per_session"])})
         self.log.info(f"test: {test['test_bps']} bps, "
                       f"{test['test_rsquared']} r2")
         return self._result({k: v for k, v in test.items()
@@ -513,4 +597,6 @@ class MultiSessionTrainer:
                 "start_epoch": self._start_epoch,
                 "train_losses": list(self.train_losses),
                 "eval_history": list(self.eval_history),
-                "n_params": self.n_params, "log_dir": self.log_dir, **extra}
+                "n_params": self.n_params,
+                "replica_checksums": list(self.replica_checksums),
+                "log_dir": self.log_dir, **extra}
