@@ -59,6 +59,19 @@ Phases, one JSON line each on stdout:
    f32 models) against the same weights in f32 on the CPU;
 6. vtt_step_time: ms/step of the staged VTT train step (CUDA events),
    frames/s, peak memory, model TFLOP/step and its share of the bf16 peak;
+6b. tensor_main_path: the ``model`` axis, ranks sharing the card over gloo
+    under ``torch.distributed.run``: (a) ``cli.train`` on the full-width
+    Linear with ``training.mesh: {data: 1, model: 2}`` (2 ranks, global
+    batch 16), 2 epochs then ``--resume`` to 3: a launch a step on each
+    rank (the parameters replicated, both ranks on the same rows), the W
+    checksums equal every epoch, W after 2 epochs bitwise a one-process
+    streamed run's; (b) the tensor-sharded VTT step at the recipe's width
+    under the production sharding rules on {data: 2, model: 2} (4 ranks,
+    global batch 8), 3 steps in f32 and in bf16 against the unsplit step
+    in one process on the same rows (losses and gathered parameters within
+    their stated bounds), each rank's shard shapes, ms/step and bytes
+    gathered and all-reduced a step; (c) the VTT ``model_best`` served
+    under the same rules on 2 ranks against the one-rank session;
 7. rrr_main_path: ``cli.create_eid_data --input_mod me`` then
    ``cli.train_rrr --device cuda`` on a synthetic session of 668 neurons and
    80 trials, and the same fit on the CPU, whose mean bps must agree;
@@ -122,7 +135,8 @@ Phases, one JSON line each on stdout:
     (field and features, each within its bound), timed with CUDA events
     and profiled (launches and device ms a trial);
 21. a ``{"kernels": [...]}`` line (the fused readout runs on the Linear,
-    lean Linear, streamed Linear, data-parallel Linear and probe paths; the accumulation, VTT, RRR, SSL,
+    lean Linear, streamed Linear, data-parallel Linear, model-axis Linear
+    and probe paths; the accumulation, VTT, tensor-sharded VTT, RRR, SSL,
     pretraining, serving, export, CEBRA and ETL paths must launch it 0
     times);
 22. last line: ``{"ok": true, "device": {...}}``.
@@ -1498,6 +1512,403 @@ def phase_dist_main_path(work: Path, staged_ms: float) -> dict:
            "note": "2 ranks time-slice one card: not a scaling figure"}
     out["phase_seconds"] = time.perf_counter() - t_phase
     emit("dist_main_path", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the model axis (tensor parallelism over torch.distributed)
+# ---------------------------------------------------------------------------
+
+TP_MESH = {"data": 2, "model": 2}      # the tensor-sharded VTT's 4 ranks
+TP_BATCH = 8                           # global: 4 rows a data block
+TP_STEPS = 3                           # checked steps (as the JAX smoke)
+TP_TIMED_STEPS = 3                     # then timed (host clock) steps
+TP_LR_PEAK, TP_LR_STEPS = 5e-5, 100    # the JAX smoke's AdamW schedule
+TP_F32_LOSS_RTOL = 1e-4
+TP_BF16_LOSS_RTOL = 5e-3
+# AdamW moves a parameter by at most ~lr a step (|m̂|/√v̂ <= 1.005 in the
+# first 3 steps at b1 0.9, b2 0.999, plus weight decay): two runs whose
+# gradients differ only in rounding differ by at most twice the summed
+# step sizes, in any compute dtype. A block misplaced by the split (a wrong
+# dim, a swapped rank) moves weights by their own scale, far beyond it.
+TP_PARAM_ATOL_FACTOR = 2 * 1.01
+TP_SERVE_BUCKETS = (4, 8)
+TP_SERVE_ROWS = (3, 8)
+
+
+def tp_param_atol() -> float:
+    from video_spike_torch.ops.optim import cosine_onecycle_schedule
+
+    lr = cosine_onecycle_schedule(TP_LR_STEPS, TP_LR_PEAK)
+    return TP_PARAM_ATOL_FACTOR * sum(lr(i) for i in range(TP_STEPS))
+
+
+def tensor_vtt_run(dtype_name: str, device: str = "cuda") -> tuple:
+    """TP_STEPS tensor-sharded VTT steps at the recipe's shape
+    (``configs/model/vtt_video.yaml``, five sessions of 668-300 neurons)
+    from a seeded CPU init on a TP_BATCH-row batch from ``default_rng(7)``,
+    then TP_TIMED_STEPS timed ones (host clock; ``loss.item()`` waits for
+    the last); under a process group on the
+    ``TP_MESH`` grid (each rank takes its data block), without one the
+    unsplit step on every row. Returns (figures, the gathered params after
+    the checked steps on the host)."""
+    import numpy as np
+    import torch
+
+    from video_spike_torch.models.vtt import VideoTemporalTransformer
+    from video_spike_torch.ops.optim import AdamW, cosine_onecycle_schedule
+    from video_spike_torch.parallel import multihost as mh
+    from video_spike_torch.parallel import tensor as tp
+    from video_spike_torch.parallel.mesh import make_mesh
+    from video_spike_torch.train.multisession import make_vtt_tensor_step
+
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    cfg = vtt_model_config()
+    model = VideoTemporalTransformer.from_config(cfg, dtype=dtype)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(device)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    mesh = (make_mesh(**{f"n_{a}": n for a, n in TP_MESH.items()})
+            if mh.is_multihost() else make_mesh())
+    rng = np.random.default_rng(7)
+    video = rng.integers(0, 255, (TP_BATCH, T_FRAMES, 1, HEIGHT, WIDTH),
+                         dtype=np.uint8)
+    sids = np.arange(TP_BATCH) % len(VTT_NEURONS)
+    nmask = np.zeros((TP_BATCH, cfg["max_neurons"]), np.float32)
+    for i, s in enumerate(sids):
+        nmask[i, :VTT_NEURONS[s]] = 1.0
+    ap = rng.poisson(0.5, (TP_BATCH, 100, cfg["max_neurons"])).astype(
+        np.float32) * nmask[:, None, :]
+    block = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in
+             mh.replicated_rows_to_global(mesh, video, ap, sids, nmask)]
+    step, params, opt_state, rules = make_vtt_tensor_step(
+        model, params, mesh, AdamW(cosine_onecycle_schedule(
+            TP_LR_STEPS, TP_LR_PEAK), weight_decay=0.01))
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(TP_STEPS):
+        params, opt_state, loss = step(params, opt_state, *block)
+        losses.append(float(loss))
+    full = {k: v.cpu() for k, v in mh.gather_tree(params, rules).items()}
+    tp.gather_last.bytes = tp.copy_to_model.bytes = 0
+    mh.barrier()
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TP_TIMED_STEPS):
+        params, opt_state, loss = step(params, opt_state, *block)
+    loss.item()
+    ms = (time.perf_counter() - t0) / TP_TIMED_STEPS * 1e3
+    split = sorted(k for k, r in rules.items() if r.axis is not None)
+    data_reduced = (4 * (sum(v.numel() for v in params.values()) + 1)
+                    if mesh.group("data") is not None else 0)
+    return {"dtype": dtype_name, "mesh": dict(mesh.shape),
+            "coords": dict(mesh.coords), "losses": losses,
+            "ms_per_step": ms,
+            "shard_shapes": {k: list(params[k].shape) for k in split},
+            "bytes_per_step": {
+                "model_gathered": tp.gather_last.bytes // TP_TIMED_STEPS,
+                "model_all_reduced":
+                    tp.copy_to_model.bytes // TP_TIMED_STEPS,
+                "data_all_reduced": data_reduced},
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if on_card else None)}, full
+
+
+# every rank: cli.train under training.mesh {data: 1, model: 2}, 2 epochs
+# (the digest of model_last's W after them, rank 0), then --resume to 3
+TP_LINEAR_CHILD = r"""
+import hashlib, json, sys
+import torch
+import torch.distributed as dist
+from video_spike_torch.cli import train as train_cli
+from video_spike_torch.core.runtime import teardown_runtime
+from video_spike_torch.ops import fused_readout as fr
+from video_spike_torch.parallel import multihost as mh
+from video_spike_torch.train.checkpoint import load_checkpoint
+
+cfg = json.loads(sys.argv[1])
+fr.apply_scaled_outer.launches = 0
+res = train_cli.main(cfg["argv"] + ["--num_epochs", "2"])
+launches = fr.apply_scaled_outer.launches
+rank = mh.process_index()
+digest = None
+if rank == 0:
+    w = load_checkpoint(res["log_dir"], "model_last")["params"][
+        fr.FIRST_KERNEL]
+    digest = hashlib.blake2b(w.contiguous().view(torch.uint8).numpy(),
+                             digest_size=16).hexdigest()
+    del w
+mh.barrier()
+fr.apply_scaled_outer.launches = 0
+res2 = train_cli.main(cfg["argv"] + ["--num_epochs", "3", "--resume"])
+out = {"rank": rank, "world": mh.process_count(),
+       "backend": dist.get_backend(), "train_losses": res["train_losses"],
+       "steps": res["global_step"], "launches": launches,
+       "replica_checksums": res["replica_checksums"], "w_digest": digest,
+       "resume_start_epoch": res2["start_epoch"],
+       "resume_steps": res2["global_step"] - res["global_step"],
+       "resume_launches": fr.apply_scaled_outer.launches,
+       "resume_replica_checksums": res2["replica_checksums"],
+       "test": res["test_res"], "log_dir": res["log_dir"]}
+with open(f"{cfg['out']}{rank}.json", "w") as f:
+    json.dump(out, f)
+teardown_runtime()
+"""
+
+# every rank: the tensor-sharded VTT step in f32, then in bf16 (rank 0
+# saves the gathered params of each)
+TP_VTT_CHILD = r"""
+import json, sys
+import torch
+from chip_smoke import tensor_vtt_run
+from video_spike_torch.core.runtime import setup_runtime, teardown_runtime
+from video_spike_torch.ops import fused_readout as fr
+from video_spike_torch.parallel import multihost as mh
+
+cfg = json.loads(sys.argv[1])
+assert setup_runtime("cuda")
+fr.apply_scaled_outer.launches = 0
+runs = []
+for d in ("f32", "bf16"):
+    run, full = tensor_vtt_run(d)
+    if mh.process_index() == 0:
+        torch.save(full, f"{cfg['out']}_{d}.pt")
+    runs.append(run)
+    del full
+out = {"runs": runs, "launches": fr.apply_scaled_outer.launches}
+with open(f"{cfg['out']}{mh.process_index()}.json", "w") as f:
+    json.dump(out, f)
+teardown_runtime()
+"""
+
+# every rank: the VTT model_best served under the production rules on a
+# {data: 1, model: 2} mesh
+TP_SERVE_CHILD = r"""
+import json, sys
+import numpy as np
+from video_spike_torch.core.runtime import setup_runtime, teardown_runtime
+from video_spike_torch.models.vtt import vtt_sharding_rules
+from video_spike_torch.ops import fused_readout as fr
+from video_spike_torch.parallel import multihost as mh
+from video_spike_torch.parallel.mesh import make_mesh
+from video_spike_torch.serve.session import InferenceSession
+
+cfg = json.loads(sys.argv[1])
+assert setup_runtime("cuda")
+session = InferenceSession.from_checkpoint(
+    cfg["model_config"], cfg["ckpt_dir"], bucket_sizes=cfg["buckets"],
+    device="cuda", mesh=make_mesh(n_data=1, n_model=mh.process_count()),
+    sharding_rules=vtt_sharding_rules)
+rows = np.load(cfg["rows"])
+sids = np.load(cfg["sids"])
+outs = {str(n): session.predict(rows[:n], sids[:n]) for n in cfg["sizes"]}
+shapes = {k: list(v.shape) for k, v in session.params.items()
+          if k in ("session_heads", "frame_encoder.Block_0.Dense_0.kernel")}
+np.savez(f"{cfg['out']}{mh.process_index()}.npz",
+         shapes=json.dumps(shapes), launches=fr.apply_scaled_outer.launches,
+         **outs)
+teardown_runtime()
+"""
+
+
+def _tp_linear(work: Path) -> dict:
+    """(a) the full-width Linear through ``cli.train`` on a {data: 1,
+    model: 2} mesh over 2 gloo ranks: both ranks run the same 16 rows a
+    step (the rank-local cache refused, streamed), launch the kernel once
+    a step, agree bitwise every epoch, and end the 2 epochs with the W of
+    a one-process streamed run on the same rows and seed."""
+    import hashlib
+
+    import torch
+
+    from video_spike_torch.cli import train as train_cli
+
+    tp_yaml = _variant_yaml(work, "model_axis", PRODUCTION_OPTIMIZER,
+                            training={"mesh": {"data": 1, "model": 2}})
+    ref_yaml = _variant_yaml(work, "model_axis_ref", PRODUCTION_OPTIMIZER,
+                             training={"device_cache": False})
+    seconds = _torchrun(TP_LINEAR_CHILD, 2, {
+        "argv": _linear_args(work, tp_yaml, "tp_logs"),
+        "out": str(work / "tp_linear")}, env={"VST_DIST_BACKEND": "gloo"})
+    ranks = [json.loads((work / f"tp_linear{r}.json").read_text())
+             for r in range(2)]
+    r0 = ranks[0]
+    for key in ("train_losses", "steps", "replica_checksums", "test",
+                "resume_replica_checksums"):
+        if any(r[key] != r0[key] for r in ranks):
+            raise AssertionError(f"model-axis ranks differ in {key}: "
+                                 f"{[r[key] for r in ranks]}")
+    written = sorted(p.name for p in Path(r0["log_dir"]).iterdir())
+    if written != ["metrics.jsonl", "model_best.pt", "model_last.pt",
+                   "test_results.npy"]:
+        raise AssertionError(f"rank-0 artifacts: {written}")
+    ref = train_cli.main(_linear_args(work, ref_yaml, "tp_ref_logs")
+                         + ["--num_epochs", "2"])
+    torch.cuda.synchronize()
+    # a data row runs the global batch: the one-process step count
+    for r in ranks:
+        if r["backend"] != "gloo" or r["world"] != 2 \
+                or r["steps"] != ref["global_step"] \
+                or r["launches"] != r["steps"] \
+                or r["resume_launches"] != r["resume_steps"] \
+                or 2 * r["resume_steps"] != r["steps"] \
+                or r["resume_start_epoch"] != 2:
+            raise AssertionError(f"model-axis rank {r['rank']}: {r}")
+    if len(r0["replica_checksums"]) != 2 \
+            or len(r0["resume_replica_checksums"]) != 1 \
+            or not all(math.isfinite(v) for v in r0["train_losses"]):
+        raise AssertionError(f"model-axis run: {r0}")
+    w = _bf16_w(ref["log_dir"])
+    ref_digest = hashlib.blake2b(w.contiguous().view(torch.uint8).numpy(),
+                                 digest_size=16).hexdigest()
+    del w
+    out = {"mesh": {"data": 1, "model": 2}, "world": 2, "backend": "gloo",
+           "global_batch": BATCH, "train_losses": r0["train_losses"],
+           "one_process_losses": ref["train_losses"],
+           "steps_per_rank": r0["steps"],
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "launches": sum(r["launches"] for r in ranks),
+           "resume_launches": sum(r["resume_launches"] for r in ranks),
+           "replica_checksums": r0["replica_checksums"]
+           + r0["resume_replica_checksums"],
+           "w_bitwise_one_process": r0["w_digest"] == ref_digest,
+           "w_digest": r0["w_digest"], "one_process_w_digest": ref_digest,
+           "test": r0["test"], "launch_seconds": seconds}
+    if not out["w_bitwise_one_process"] \
+            or ref["train_losses"] != r0["train_losses"]:
+        raise AssertionError(f"model-axis Linear vs one process: {out}")
+    return out
+
+
+def _param_diff(got: dict, want: dict) -> dict:
+    """Max |got - want| over every leaf, and the share of elements equal
+    bitwise."""
+    worst, same, total = 0.0, 0, 0
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape:
+            raise AssertionError(f"{k}: gathered {tuple(g.shape)} vs "
+                                 f"{tuple(w.shape)}")
+        worst = max(worst, float((g.float() - w.float()).abs().max()))
+        same += int((g == w).sum())
+        total += w.numel()
+    return {"max_abs": worst, "bitwise_share": same / total}
+
+
+def _tp_vtt(work: Path) -> dict:
+    """(b) the tensor-sharded VTT at full width on TP_MESH (4 gloo ranks
+    sharing the card) against the unsplit step in this process on the same
+    rows from the same init, in f32 and in bf16."""
+    import torch
+
+    world = TP_MESH["data"] * TP_MESH["model"]
+    base = work / "tp_vtt"
+    seconds = _torchrun(TP_VTT_CHILD, world, {"out": str(base)},
+                        env={"VST_DIST_BACKEND": "gloo"})
+    ranks = [json.loads((work / f"tp_vtt{r}.json").read_text())
+             for r in range(world)]
+    if any(r["launches"] for r in ranks):
+        raise AssertionError(f"the tensor-sharded VTT launched the fused "
+                             f"readout: {[r['launches'] for r in ranks]}")
+    atol = tp_param_atol()
+    out = {"mesh": TP_MESH, "world": world, "backend": "gloo",
+           "global_batch": TP_BATCH, "param_atol": atol,
+           "launch_seconds": seconds, "launches": 0}
+    for i, (name, rtol) in enumerate((("f32", TP_F32_LOSS_RTOL),
+                                      ("bf16", TP_BF16_LOSS_RTOL))):
+        runs = [r["runs"][i] for r in ranks]
+        one, want = tensor_vtt_run(name)
+        losses = runs[0]["losses"]
+        if any(run["losses"] != losses for run in runs) \
+                or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name}: the ranks' losses "
+                                 f"{[run['losses'] for run in runs]}")
+        diff = _param_diff(torch.load(f"{base}_{name}.pt",
+                                      weights_only=True), want)
+        del want
+        loss_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, one["losses"]))
+        out[name] = {
+            "losses": losses, "one_process_losses": one["losses"],
+            "loss_max_rel_err": loss_err, "loss_rtol": rtol,
+            "params_after_steps": diff,
+            "shard_shapes_by_rank": [run["shard_shapes"] for run in runs],
+            "coords_by_rank": [run["coords"] for run in runs],
+            "ms_per_step_by_rank": [run["ms_per_step"] for run in runs],
+            "one_process_ms_per_step": one["ms_per_step"],
+            "bytes_per_step_by_rank": [run["bytes_per_step"]
+                                       for run in runs],
+            "peak_mem_gb_by_rank": [run["peak_mem_gb"] for run in runs],
+            "one_process_peak_mem_gb": one["peak_mem_gb"]}
+        if loss_err > rtol or diff["max_abs"] > atol \
+                or losses[-1] == losses[0]:
+            raise AssertionError(f"tensor-sharded VTT ({name}) vs the "
+                                 f"unsplit step: {out[name]}")
+    _free_card()
+    return out
+
+
+def _tp_serve(work: Path) -> dict:
+    """(c) the VTT phase's ``model_best`` served under the production rules
+    on 2 gloo ranks against the one-rank session."""
+    import numpy as np
+    import yaml
+
+    from video_spike_torch.serve import InferenceSession
+
+    cfg = yaml.safe_load((ROOT / "configs/model/vtt_video.yaml").read_text())
+    ckpt = _ckpt_dir(work / "vtt_logs")
+    video, sids = _vtt_trials(work, max(TP_SERVE_ROWS))
+    np.save(work / "tp_serve_rows.npy", video)
+    np.save(work / "tp_serve_sids.npy", sids)
+    seconds = _torchrun(TP_SERVE_CHILD, 2, {
+        "model_config": cfg, "ckpt_dir": str(ckpt),
+        "buckets": list(TP_SERVE_BUCKETS),
+        "rows": str(work / "tp_serve_rows.npy"),
+        "sids": str(work / "tp_serve_sids.npy"),
+        "sizes": list(TP_SERVE_ROWS), "out": str(work / "tp_serve")},
+        env={"VST_DIST_BACKEND": "gloo"})
+    session = InferenceSession.from_checkpoint(
+        cfg, str(ckpt), bucket_sizes=TP_SERVE_BUCKETS, device="cuda")
+    refs = {str(n): session.predict(video[:n], sids[:n])
+            for n in TP_SERVE_ROWS}
+    del session
+    served = [np.load(work / f"tp_serve{r}.npz") for r in range(2)]
+    errs = {n: _rel_err(served[0][n], ref) for n, ref in refs.items()}
+    shapes = [json.loads(str(s["shapes"])) for s in served]
+    out = {"buckets": list(TP_SERVE_BUCKETS), "rows": list(TP_SERVE_ROWS),
+           "max_rel_err": errs, "bound": SERVE_REL_BOUND,
+           "shard_shapes": shapes[0],
+           "launches": sum(int(s["launches"]) for s in served),
+           "launch_seconds": seconds}
+    want = {"session_heads": [len(VTT_NEURONS), 512, max(VTT_NEURONS) // 2],
+            "frame_encoder.Block_0.Dense_0.kernel": [512, 512]}
+    if max(errs.values()) > SERVE_REL_BOUND or out["launches"] \
+            or any(s != want for s in shapes) \
+            or any(not np.array_equal(s[n], served[0][n])
+                   for s in served for n in refs):
+        raise AssertionError(f"split VTT session: {out}")
+    _free_card()
+    return out
+
+
+def phase_tensor_main_path(work: Path) -> dict:
+    """The model axis: (a) the Linear through ``cli.train`` on {data: 1,
+    model: 2}; (b) the tensor-sharded VTT step at full width on {data: 2,
+    model: 2}; (c) the VTT ``model_best`` served split over 2 ranks. Ranks
+    share the one card over gloo; their times are not scaling figures."""
+    t_phase = time.perf_counter()
+    _free_card()
+    out = {"nvidia_smi": nvidia_smi_line(), "linear": _tp_linear(work)}
+    out["vtt"] = _tp_vtt(work)
+    out["serve"] = _tp_serve(work)
+    out["note"] = ("ranks time-slice one card and move their collectives "
+                   "through gloo (host memory): not a scaling figure")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit("tensor_main_path", **out)
     return out
 
 
@@ -3116,6 +3527,7 @@ def main() -> int:
         phase_vtt_main_path(work)
         phase_vtt_card_vs_cpu()
         phase_vtt_step_time(work)
+        tensor = phase_tensor_main_path(work)
         phase_rrr_main_path(work)
         _, ssl = phase_ssl_main_path(work)
         phase_ssl_card_vs_cpu()
@@ -3137,6 +3549,8 @@ def main() -> int:
     kernel["launches"] = (main_path["launches"] + lean["launches"]
                           + stream["launches"] + dist["launches"]
                           + dist["resume_launches"] + dist["nccl1_launches"]
+                          + tensor["linear"]["launches"]
+                          + tensor["linear"]["resume_launches"]
                           + probe["launches"])
     kernel["launches_by_path"] = {
         "linear": main_path["launches"],
@@ -3148,6 +3562,10 @@ def main() -> int:
         "stream_resume": stream["resume_launches"],
         "dp": dist["launches"], "dp_resume": dist["resume_launches"],
         "dp_nccl1": dist["nccl1_launches"],
+        "model_axis_linear": tensor["linear"]["launches"],
+        "model_axis_linear_resume": tensor["linear"]["resume_launches"],
+        "tensor_vtt": tensor["vtt"]["launches"],
+        "tensor_serve": tensor["serve"]["launches"],
         "probe": probe["launches"], "probe_resume": probe["resume_launches"],
         "serve": serve["fused_readout_launches"]
         + vtt_serve["fused_readout_launches"],
@@ -3155,7 +3573,8 @@ def main() -> int:
         "cebra": cebra["fused_readout_launches"],
         "etl": etl["fused_readout_launches"]}
     if any(kernel["launches_by_path"][p] for p in (
-            "linear_accum", "serve", "export", "cebra", "etl")):
+            "linear_accum", "serve", "export", "cebra", "etl", "tensor_vtt",
+            "tensor_serve")):
         raise AssertionError(f"the fused readout ran under accumulation or "
                              f"on an inference, embedding or ETL path: "
                              f"{kernel['launches_by_path']}")

@@ -16,7 +16,9 @@ the rank-B sum (the kernel's summation order may differ from torch's
 matmul, which can flip a rounding). The host I/O's card paths (the pinned
 prefetch, the background fetch) are held bitwise against the CPU path. Two
 gloo ranks on one card run the data-parallel fused step (each gathers the
-other's rank-B factors) and end with bitwise-equal kernels.
+other's rank-B factors) and end with bitwise-equal kernels; two gloo
+ranks run a column-split Dense (``parallel/tensor``) on CUDA tensors
+against the unsplit layer.
 """
 
 import os
@@ -216,3 +218,58 @@ def test_two_gloo_ranks_on_one_card_keep_w_bitwise_equal(cuda_device,
     assert p.returncode == 0, (p.stdout + p.stderr)[-6000:]
     w0, w1 = (torch.load(tmp_path / f"w{r}.pt") for r in range(2))
     assert torch.equal(w0.view(torch.int16), w1.view(torch.int16))
+
+
+TP_LAYERS = r"""
+import sys
+import torch
+from video_spike_torch.core.runtime import setup_runtime, teardown_runtime
+from video_spike_torch.parallel import multihost as mh
+from video_spike_torch.parallel.mesh import make_mesh
+from video_spike_torch.parallel.tensor import column_dense
+
+assert setup_runtime("cuda")
+mesh = make_mesh(n_data=1, n_model=2)
+group, r = mesh.group("model"), mesh.coords["model"]
+g = torch.Generator().manual_seed(0)
+x, k, b, gy = (torch.randn(s, generator=g).cuda() for s in
+               ((4, 64, 512), (512, 1024), (1024,), (4, 64, 1024)))
+out = {}
+for split in (False, True):
+    xi, bi = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    ki = (k[:, 512 * r:512 * r + 512] if split else k).clone()
+    ki.requires_grad_(True)
+    y = column_dense(xi, ki, bi, torch.float32, group if split else None)
+    (y * gy).sum().backward()
+    out[split] = (y.detach(), xi.grad, ki.grad, bi.grad)
+y1, dx1, dk1, db1 = out[False]
+y2, dx2, dk2, db2 = out[True]
+rel = lambda a, w: float((a - w).abs().max() / w.abs().max())
+errs = [rel(y2, y1), rel(dx2, dx1), rel(dk2, dk1[:, 512 * r:512 * r + 512]),
+        rel(db2, db1)]
+assert y2.is_cuda and dx2.is_cuda
+torch.save(errs, f"{sys.argv[1]}{r}.pt")
+teardown_runtime()
+"""
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_column_split_dense_on_the_card(cuda_device,
+                                                       tmp_path):
+    """``copy_to_model`` / ``gather_last`` on CUDA tensors over gloo: a
+    column-split Dense (the VTT's MLP width) against the unsplit layer on
+    the same card, forward and gradients, rtol 1e-5 (TF32 off; cuBLAS may
+    block the column halves differently from the whole)."""
+    env = dict(os.environ, VST_DIST_BACKEND="gloo",
+               PYTHONPATH=os.pathsep.join(
+                   [str(Path(__file__).resolve().parent.parent),
+                    os.environ.get("PYTHONPATH", "")]))
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=2", "--no-python", sys.executable, "-c",
+         TP_LAYERS, str(tmp_path / "e")],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, (p.stdout + p.stderr)[-6000:]
+    for r in range(2):
+        errs = torch.load(tmp_path / f"e{r}.pt")
+        assert max(errs) <= 1e-5, errs

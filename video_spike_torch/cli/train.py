@@ -22,6 +22,11 @@ data-parallel (``core/runtime.setup_runtime``; each rank reads its shard of
 the training trials, ``--batch_size`` is the per-rank batch):
 
     torchrun --nproc_per_node=K -m video_spike_torch.cli.train ...
+
+``training.mesh: {data: D, model: M}`` in the train yaml (D·M = K) reaches
+both trainers: the parameters stay replicated, the M ranks of a data row
+read the same shard and run the same rows, and ``--batch_size`` is a data
+row's batch (global D × batch).
 """
 
 from __future__ import annotations
@@ -73,8 +78,11 @@ def build_trainer(args):
     if not split["train"]:
         raise SystemExit(
             f"no trial tars for eid {args.eid} in {config.dirs.data_dir}")
-    # this rank's training shard; val/test stay whole on every rank
-    local_split = dict(split, train=shard_files_for_process(split["train"]))
+    # this rank's training shard (its data row's, under a model axis);
+    # val/test stay whole on every rank
+    mesh_cfg = config.training.get("mesh", {}) or {}
+    local_split = dict(split, train=shard_files_for_process(
+        split["train"], mesh_cfg.get("model", 1), mesh_cfg.get("data")))
     train_dl, val_dl, test_dl = make_loader(config, local_split)
     meta = get_metadata_from_loader(train_dl, config)
     log.info(f"meta_data: {meta}")

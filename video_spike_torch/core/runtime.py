@@ -50,3 +50,13 @@ def setup_runtime(device: str | torch.device = "cuda") -> bool:
     dist.init_process_group(backend, init_method="env://", rank=rank,
                             world_size=world)
     return True
+
+
+def teardown_runtime() -> None:
+    """Leave the process group in order: every rank waits for the others,
+    then the groups (the default one and every ``new_group``) are
+    destroyed while all peers are still alive, not by the interpreter's
+    teardown at exit. A no-op without a group."""
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()

@@ -59,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from video_spike_torch.models.linear import Dense, lecun_normal_
 from video_spike_torch.ops.attention import attention_bshd
 from video_spike_torch.ops.fused_readout import dense
+from video_spike_torch.parallel.tensor import column_dense
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +144,17 @@ class LayerNorm(nn.Module):
         return ((xf - mean) * mul + self.bias).to(self.dtype)
 
 
+def layer_dense(layer: nn.Module, x: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """``dense`` through a ``Dense`` layer's kernel and bias; a layer given
+    a ``model_group`` (``models/vtt.split_over_model``) holds its kernel's
+    column block and runs as a column-split Dense over that group."""
+    group = getattr(layer, "model_group", None)
+    if group is None:
+        return dense(x, layer.kernel, layer.bias, dtype)
+    return column_dense(x, layer.kernel, layer.bias, dtype, group)
+
+
 class SelfAttention(nn.Module):
     """qkv Dense -> ``attention_bshd`` -> proj Dense."""
 
@@ -159,11 +171,11 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
-        qkv = dense(x, self.qkv.kernel, self.qkv.bias, self.dtype)
+        qkv = layer_dense(self.qkv, x, self.dtype)
         qkv = qkv.reshape(b, s, 3, self.heads, self.hidden // self.heads)
         out = attention_bshd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
         out = out.reshape(b, s, self.hidden)
-        return dense(out, self.proj.kernel, self.proj.bias, self.dtype)
+        return layer_dense(self.proj, out, self.dtype)
 
 
 class Block(nn.Module):
@@ -194,11 +206,9 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.SelfAttention_0(self.LayerNorm_0(x))
-        y = dense(self.LayerNorm_1(x), self.Dense_0.kernel, self.Dense_0.bias,
-                  self.dtype)
+        y = layer_dense(self.Dense_0, self.LayerNorm_1(x), self.dtype)
         y = F.gelu(y, approximate=self.gelu)
-        return x + dense(y, self.Dense_1.kernel, self.Dense_1.bias,
-                         self.dtype)
+        return x + layer_dense(self.Dense_1, y, self.dtype)
 
 
 def _run_blocks(blocks, x: torch.Tensor, remat: bool) -> torch.Tensor:

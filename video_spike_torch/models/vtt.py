@@ -25,6 +25,13 @@ pixels go uint8 -> f32 / 255 -> the compute dtype, in that order.
 same either way. Parameters are f32; init draws from the caller's
 ``torch.Generator`` (the values differ from flax's init, the distributions
 do not).
+
+Tensor sharding over a mesh's ``model`` axis: :func:`vtt_sharding_rules`
+is the port of the production rules (``__graft_entry__._vtt_sharding_rules``
+in the JAX package) on the port's flat names, and :func:`split_over_model`
+makes the model run what they split: each column-split kernel as a
+column-split Dense (``parallel/tensor``), and the session heads on this
+rank's block of neurons, gathered before the output leaves the model.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ from video_spike_torch.models.vit_mae import (
     sincos_pos_embed_1d,
     sincos_pos_embed_2d,
 )
+from video_spike_torch.parallel.mesh import Placement
+from video_spike_torch.parallel.tensor import copy_to_model, gather_last
 
 
 def time_resample_init(t_frames: int, t_bins: int) -> np.ndarray:
@@ -57,6 +66,76 @@ def time_resample_init(t_frames: int, t_bins: int) -> np.ndarray:
         M[lo[j], j] += 1 - frac[j]
         M[hi[j], j] += frac[j]
     return M
+
+
+# leaves split on their last (neuron) axis by the production rules
+HEAD_LEAVES = ("session_heads", "session_bias")
+# a 2-D kernel splits its columns from this output width on
+MIN_SPLIT_WIDTH = 256
+
+
+def vtt_sharding_rules(params, mesh) -> dict:
+    """A placement per flat parameter name, the JAX package's production
+    rules: a leaf named ``session_heads`` or ``session_bias`` splits its
+    last dimension over ``model``; a leaf ending in ``kernel`` with 2
+    dimensions whose output width divides the model axis and is at least
+    256 splits its columns (dim 1, ``P(None, "model")``); everything else
+    is replicated. A head split that does not divide the axis raises when
+    the tree is placed (``multihost.put_tree``), as ``jax.device_put``
+    does."""
+    n = mesh.shape["model"]
+    out = {}
+    for k, v in params.items():
+        names = k.split(".")
+        if any(h in names for h in HEAD_LEAVES):
+            out[k] = Placement(mesh, "model", v.ndim, v.ndim - 1)
+        elif (names[-1] == "kernel" and v.ndim == 2 and v.shape[1] % n == 0
+              and v.shape[1] >= MIN_SPLIT_WIDTH):
+            out[k] = Placement(mesh, "model", 2, 1)
+        else:
+            out[k] = Placement(mesh, None, v.ndim)
+    return out
+
+
+def split_over_model(model: nn.Module, placements) -> tuple:
+    """Make `model` (a ``VideoTemporalTransformer`` holding, or about to be
+    given, the blocks of its split leaves) run the split that `placements`
+    fix: each ``Dense`` whose 2-D kernel splits its columns gets the model
+    group (its bias must be replicated), and the session heads and biases,
+    split on their last axis together, make the forward compute this
+    rank's neurons and gather them. Returns the split leaves' names.
+    Raises ``NotImplementedError`` for a split the forward does not run."""
+    modules = dict(model.named_modules())
+    split = tuple(k for k, p in placements.items() if p.axis is not None)
+    heads = {k for k in split if k in HEAD_LEAVES}
+    if heads and heads != set(HEAD_LEAVES):
+        raise NotImplementedError(f"the session heads and biases split "
+                                  f"together, not {sorted(heads)} alone")
+    for k in split:
+        p = placements[k]
+        if p.axis != "model":
+            raise NotImplementedError(f"{k}: split over {p.axis!r}; the VTT "
+                                      f"splits over the model axis only")
+        if k in HEAD_LEAVES:
+            if p.dim % p.ndim != p.ndim - 1:
+                raise NotImplementedError(f"{k}: heads split on the neuron "
+                                          f"axis only, not dim {p.dim}")
+            continue
+        owner, _, leaf = k.rpartition(".")
+        bias = f"{owner}.bias"
+        if (leaf != "kernel" or p.ndim != 2 or p.dim % 2 != 1
+                or owner not in modules or bias not in placements
+                or placements[bias].axis is not None):
+            raise NotImplementedError(
+                f"{k}: the VTT runs column splits of 2-D Dense kernels with "
+                f"a replicated bias and its session heads only")
+    groups = {placements[k].mesh.group("model") for k in split}
+    group = groups.pop() if groups else None
+    for k in split:
+        if k not in HEAD_LEAVES:
+            modules[k.rpartition(".")[0]].model_group = group
+    model.model_group = group if heads else None
+    return split
 
 
 class FrameEncoder(nn.Module):
@@ -198,4 +277,9 @@ class VideoTemporalTransformer(nn.Module):
         h = torch.einsum("btd,tz->bzd", h, self.time_resample)
         Wb = self.session_heads[session_ids]              # (B, D, N_max)
         bb = self.session_bias[session_ids]               # (B, N_max)
-        return torch.bmm(h.float(), Wb) + bb[:, None, :]
+        group = getattr(self, "model_group", None)
+        if group is None:
+            return torch.bmm(h.float(), Wb) + bb[:, None, :]
+        # this rank's neuron block (split heads), gathered in model order
+        out = torch.bmm(copy_to_model(h.float(), group), Wb) + bb[:, None, :]
+        return gather_last(out, group)

@@ -11,13 +11,27 @@ rank 0 writes checkpoints and results.
         -m video_spike_torch.parallel.dcn_trainer_smoke
 
 Environment: ``DCN_MODE`` (unset: the Linear ``BaseTrainer``;
-``multisession``; ``ssl``; ``ssl_resume``), ``DCN_EID``,
+``multisession``; ``ssl``; ``ssl_resume``; ``tensor``), ``DCN_EID``,
 ``DCN_DEVICE_CACHE=0`` (the streaming Linear path), ``DCN_H5`` (the SSL
 modes' frame cache), ``DCN_SMOKE_FORCE_CPU=1`` (ranks on the CPU over
 gloo), and ``DCN_INIT``: a ``torch.save``d flat parameter dict every rank
 starts from instead of its seeded init (to hold the run against another
-package's run from the same weights). The ``tensor`` mode (VTT training
-with the model axis split across processes) is not ported.
+package's run from the same weights), and ``DCN_MODEL_AXIS``: the
+``model`` axis of the mesh (``training.mesh.model``; the ranks of a data
+row then read the same rows, 2 × M of them a step, as the JAX smoke's 2
+rows a device) in the Linear and multisession modes, default 1, and in
+the ``tensor`` mode, default 4.
+
+``DCN_MODE=tensor`` trains the VTT flagship (hidden 128, 3 sessions of 32
+neurons, 12 frames) for 3 steps on a {data: 2, model: M} mesh over 2·M
+ranks under the production sharding rules (``models/vtt.
+vtt_sharding_rules``): the model axis spans processes, the layout the JAX
+package's ``_tensor_sharded`` was written to test. Every rank builds the
+same global batch from ``default_rng(7)`` and takes its data block.
+
+    DCN_MODE=tensor DCN_MODEL_AXIS=2 DCN_LOG_DIR=... \
+    python -m torch.distributed.run --nproc_per_node=4 \
+        -m video_spike_torch.parallel.dcn_trainer_smoke
 """
 
 from __future__ import annotations
@@ -56,7 +70,7 @@ def _load_init(trainer) -> None:
 def main() -> None:
     import torch
 
-    from video_spike_torch.core.runtime import setup_runtime
+    from video_spike_torch.core.runtime import setup_runtime, teardown_runtime
     from video_spike_torch.parallel import multihost as mh
 
     torch.set_num_threads(1)
@@ -67,9 +81,8 @@ def main() -> None:
     eid = os.environ.get("DCN_EID", "dcntrain00")
     mode = os.environ.get("DCN_MODE")
     if mode == "tensor":
-        raise SystemExit("DCN_MODE=tensor (model-axis VTT training) is not "
-                         "ported; see ROADMAP.md")
-    if mode in ("ssl", "ssl_resume"):
+        out = _tensor_sharded(device)
+    elif mode in ("ssl", "ssl_resume"):
         fn = _ssl if mode == "ssl" else _ssl_resume
         out = fn(os.environ["DCN_H5"], log_dir, eid, device)
     elif mode == "multisession":
@@ -78,6 +91,7 @@ def main() -> None:
     else:
         out = _linear(os.environ["DCN_FIXTURE_DIR"], log_dir, eid, device)
     say(f"pid={pid} result={json.dumps(out)}")
+    teardown_runtime()
 
 
 def _linear(data_dir: str, log_dir: str, eid: str, device) -> dict:
@@ -97,13 +111,18 @@ def _linear(data_dir: str, log_dir: str, eid: str, device) -> dict:
     config = update_config("configs/train/linear_me.yaml", config)
     config["dirs"]["data_dir"] = data_dir
     config["training"]["num_epochs"] = 2
-    config["training"]["train_batch_size"] = 2   # two rows per device
+    n_model = int(os.environ.get("DCN_MODEL_AXIS", "1"))
+    config["training"]["mesh"] = {"model": n_model}
+    # two rows per device of a data block, as the JAX smoke's
+    # 2 × local_device_count with a data block's devices in one process
+    config["training"]["train_batch_size"] = 2 * n_model
     config["training"]["device_cache"] = (
         os.environ.get("DCN_DEVICE_CACHE", "1") != "0")
 
     split = split_dataset(data_dir, eid, seed=42)
     # this rank's training shard; val/test stay whole on every rank
-    local_split = dict(split, train=mh.shard_files_for_process(split["train"]))
+    local_split = dict(split, train=mh.shard_files_for_process(
+        split["train"], n_model))
     train_dl, val_dl, test_dl = make_loader(config, local_split)
     meta = get_metadata_from_loader(train_dl, config)
     config["model"]["encoder"]["input_dim"] = meta["input_dim"]
@@ -124,6 +143,84 @@ def _linear(data_dir: str, log_dir: str, eid: str, device) -> dict:
             "train_losses": res["train_losses"]}
 
 
+def _flagship(n_sessions: int, max_neurons: int, t_frames: int,
+              hidden: int, device, dtype=None):
+    """``__graft_entry__._flagship``: the production VTT recipe's shape
+    (2 + 2 blocks, 2 heads, MLP 2 × hidden, frame_stride 2)."""
+    import torch
+
+    from video_spike_torch.models.vtt import VideoTemporalTransformer
+
+    return VideoTemporalTransformer(
+        n_sessions=n_sessions, max_neurons=max_neurons, t_frames=t_frames,
+        t_bins=100, patch_size=16, hidden=hidden, frame_depth=2,
+        temporal_depth=2, heads=2, mlp_dim=2 * hidden, frame_stride=2,
+        dtype=dtype or torch.bfloat16, device=device)
+
+
+def _split(params, placements, name: str) -> dict:
+    return {"shape": list(params[name].shape),
+            "dim": placements[name].split_dim(params[name].ndim)}
+
+
+def _tensor_sharded(device) -> dict:
+    """3 tensor-sharded VTT steps on {data: 2, model: M}: every rank prints
+    the same losses, its shard shapes, and the checksums of the replicated
+    leaves (equal over the whole world) and of its split blocks (equal
+    over its data group, the ranks holding the same blocks)."""
+    import numpy as np
+    import torch
+
+    from video_spike_torch.ops.optim import AdamW, cosine_onecycle_schedule
+    from video_spike_torch.parallel import multihost as mh
+    from video_spike_torch.parallel.mesh import make_mesh
+    from video_spike_torch.train.multisession import make_vtt_tensor_step
+
+    n_model = int(os.environ.get("DCN_MODEL_AXIS", "4"))
+    mesh = make_mesh(n_data=2, n_model=n_model)
+    t_frames, t_bins, max_n = 12, 100, 32
+    batch = mesh.shape["data"] * 2
+    model = _flagship(n_sessions=3, max_neurons=max_n, t_frames=t_frames,
+                      hidden=128, device=device)
+    rng = np.random.default_rng(7)   # the same global batch on every rank
+    video = rng.integers(0, 255, (batch, t_frames, 1, 32, 32), dtype=np.uint8)
+    ap = rng.poisson(1.0, (batch, t_bins, max_n)).astype(np.float32)
+    sids = rng.integers(0, 3, (batch,)).astype(np.int64)
+    nmask = np.ones((batch, max_n), np.float32)
+
+    model.reset_parameters(torch.Generator(device=device).manual_seed(0))
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    init = os.environ.get("DCN_INIT")
+    if init:
+        loaded = torch.load(init, map_location=device, weights_only=True)
+        if set(loaded) != set(params):
+            raise KeyError(f"DCN_INIT does not match the model: "
+                           f"{sorted(set(params) ^ set(loaded))}")
+        params = {k: loaded[k].to(params[k].dtype) for k in params}
+    step, params, opt_state, rules = make_vtt_tensor_step(
+        model, params, mesh,
+        AdamW(cosine_onecycle_schedule(100, 5e-5), weight_decay=0.01))
+    block = [torch.as_tensor(a).to(device) for a in
+             mh.replicated_rows_to_global(mesh, video, ap, sids, nmask)]
+    losses = []
+    for _ in range(3):
+        params, opt_state, loss = step(params, opt_state, *block)
+        losses.append(round(float(loss), 8))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses {losses}")
+    split = [k for k, r in rules.items() if r.axis is not None]
+    whole = {k: v for k, v in params.items() if k not in split}
+    return {"losses": losses,
+            "head_split": _split(params, rules, "session_heads"),
+            "mlp_split": _split(
+                params, rules, "frame_encoder.Block_0.Dense_0.kernel"),
+            "n_split": len(split),
+            "replicated_checksum": mh.check_replicas(
+                whole, torch.distributed.group.WORLD),
+            "split_checksums": mh.replica_checksums(
+                {k: params[k] for k in split}, torch.distributed.group.WORLD)}
+
+
 def _multisession(data_dir: str, log_dir: str, eids, device) -> dict:
     """2 epochs of the ``MultiSessionTrainer``: each rank streams its shard
     of every session into mixed-session global batches."""
@@ -131,9 +228,11 @@ def _multisession(data_dir: str, log_dir: str, eids, device) -> dict:
     from video_spike_torch.models.vtt import VideoTemporalTransformer
     from video_spike_torch.train.multisession import MultiSessionTrainer
 
+    n_model = int(os.environ.get("DCN_MODEL_AXIS", "1"))
     config = DictConfig({
-        "training": {"num_epochs": 2, "train_batch_size": 2,
-                     "test_batch_size": 2},
+        "training": {"num_epochs": 2, "train_batch_size": 2 * n_model,
+                     "test_batch_size": 2 * n_model,
+                     "mesh": {"model": n_model}},
         "optimizer": {"lr": 1e-3, "wd": 0.01, "eps": 1e-8,
                       "warmup_pct": 0.15, "div_factor": 10},
     })

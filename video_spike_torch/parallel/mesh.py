@@ -12,8 +12,16 @@ Axes:
 
 - ``data``: batch sharding; each rank on one data row holds its own rows
   of the global batch and a replica of the parameters;
-- ``model``: rows of the wide first Dense split over ranks (serving,
-  ``models/linear.first_layer_sharding_rules``).
+- ``model``: tensor sharding. A ``Placement`` names the dimension it
+  splits (``dim``: ``P(None, None, "model")`` is dim 2, or -1), block j
+  on the ranks with model index j:
+  the rows of the wide Linear first Dense when served
+  (``models/linear.first_layer_sharding_rules``); the VTT's stacked
+  session heads and biases on the neuron axis and its wide 2-D kernels by
+  columns (``models/vtt.vtt_sharding_rules``, the production rules) when
+  trained by the tensor-sharded step or served. The trainers keep their
+  parameters replicated under a model axis, as the JAX package's do: the
+  ranks of a data row then hold the same rows of the batch.
 
 With no process group the mesh is the one-rank grid {data: 1, model: 1}
 and every group is None: the trainers' collectives are then no-ops.
@@ -64,14 +72,23 @@ def _axis_group(all_ranks: Sequence[Sequence[int]], mine: Sequence[int],
     return group
 
 
-def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
-    """Arrange the ranks of the default process group on (data, model)."""
-    rank, world = _world()
+def grid_shape(n_data: Optional[int] = None, n_model: int = 1) -> tuple:
+    """(n_data, n_model) of :func:`make_mesh`'s grid over the default
+    process group, creating no group; raises as ``make_mesh`` does when
+    the grid does not cover the ranks."""
+    _, world = _world()
     if n_data is None:
         n_data = world // n_model
     if n_data * n_model != world:
         raise ValueError(f"mesh {{data: {n_data}, model: {n_model}}} does "
                          f"not cover the {world} ranks of the process group")
+    return n_data, n_model
+
+
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
+    """Arrange the ranks of the default process group on (data, model)."""
+    rank, world = _world()
+    n_data, n_model = grid_shape(n_data, n_model)
     grid = np.arange(world).reshape(n_data, n_model)
     d, m = divmod(rank, n_model)
     groups = {
@@ -84,12 +101,22 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
 @dataclass(frozen=True)
 class Placement:
     """Where a tensor lives on the mesh: ``axis`` None is replicated on
-    every rank; ``axis="data"`` (or ``"model"``) splits the leading
-    dimension in contiguous blocks, block i on the ranks with index i on
-    that axis."""
+    every rank; ``axis="data"`` (or ``"model"``) splits dimension ``dim``
+    (negative counts from the end) in contiguous blocks, block i on the
+    ranks with index i on that axis."""
     mesh: Mesh
     axis: Optional[str] = None
     ndim: int = 1
+    dim: int = 0
+
+    def split_dim(self, ndim: int) -> int:
+        """``dim`` as a non-negative index into a tensor of `ndim` dims."""
+        return self.dim % ndim
+
+    @property
+    def parts(self) -> int:
+        """The number of blocks (1 when replicated)."""
+        return 1 if self.axis is None else self.mesh.shape[self.axis]
 
 
 def batch_sharding(mesh: Mesh, ndim: int = 1) -> Placement:

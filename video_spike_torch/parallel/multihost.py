@@ -14,11 +14,13 @@ its group.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from video_spike_torch.parallel.mesh import grid_shape
 
 
 def is_multihost() -> bool:
@@ -32,6 +34,12 @@ def process_index() -> int:
 
 def process_count() -> int:
     return dist.get_world_size() if is_multihost() else 1
+
+
+def world_group():
+    """The default group spanning every rank (None single-process): what
+    the replicas of a (data, model) mesh compare over."""
+    return dist.group.WORLD if is_multihost() else None
 
 
 def _group_size(group) -> int:
@@ -55,12 +63,24 @@ def barrier() -> None:
         dist.barrier()
 
 
-def shard_files_for_process(files: Sequence[str]) -> list:
-    """This rank's training shard: rank i takes files[i::world] (the
-    per-rank DataLoader split of the reference's DDP sampler)."""
+def shard_files_for_process(files: Sequence[str], n_model: int = 1,
+                            n_data: Optional[int] = None) -> list:
+    """This rank's training shard: the ranks of data row d of
+    ``make_mesh(n_data, n_model)``'s grid (d = rank // `n_model`) take
+    files[d::n_data]; at ``n_model`` 1 that is files[rank::world], the
+    per-rank DataLoader split of the reference's DDP sampler. Raises as
+    ``make_mesh`` does for a grid that does not cover the ranks.
+
+    The JAX package takes files[process_index::process_count]: there a data
+    block's devices sit in one process (the pod layout, model within a
+    host), so the process is the data row. Here every rank is one process
+    with one device, so the ranks of a data row are ``n_model`` processes,
+    and they must read the same rows (a model-axis replica of a block holds
+    the block's rows)."""
     if not is_multihost():
         return list(files)
-    return list(files)[process_index()::process_count()]
+    n_data, n_model = grid_shape(n_data, n_model)
+    return list(files)[process_index() // n_model::n_data]
 
 
 def _all_reduce_int(value: int, op) -> int:
@@ -134,17 +154,22 @@ def replicated_rows_to_global(mesh, *arrays):
     return tuple(out)
 
 
-def gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Concatenate every rank's rows of `t` along dim 0, in rank order (the
-    order of the data-sharded global batch), on every rank, on `t`'s device
-    (gloo takes CUDA tensors for all_gather too, as NCCL does)."""
+def gather_dim(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Concatenate every rank's `t` along `dim`, in rank order, on every
+    rank of `group`, on `t`'s device (gloo takes CUDA tensors for
+    all_gather too, as NCCL does); `t` itself for a group of one."""
     if _group_size(group) == 1:
         return t
-    world = dist.get_world_size(group)
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(world)]
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, 0)
+    return torch.cat(parts, dim)
+
+
+def gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's rows of `t` (dim 0) in rank order: the order of the
+    data-sharded global batch."""
+    return gather_dim(t, 0, group)
 
 
 def sum_across(tensors: Dict[str, torch.Tensor], group=None
@@ -230,25 +255,46 @@ def replicate_tree(tree):
     return tree
 
 
+def _block(v: torch.Tensor, place, name: str) -> torch.Tensor:
+    """This rank's contiguous block of `v` along the placement's dim."""
+    dim = place.split_dim(v.ndim)
+    n, j = place.parts, place.mesh.coords[place.axis]
+    if v.shape[dim] % n:
+        raise ValueError(f"{name}: dimension {dim} of {tuple(v.shape)} does "
+                         f"not divide the {place.axis} axis {n}")
+    b = v.shape[dim] // n
+    return v.narrow(dim, j * b, b).contiguous()
+
+
 def put_tree(tree: Dict[str, torch.Tensor], shardings: Dict[str, object]):
     """Full per-rank values -> each rank's part, by a placement per leaf
-    (``parallel.mesh.Placement``): ``axis="model"`` keeps this rank's
-    contiguous row block of the ``model`` axis, a replicated leaf stays
-    whole and takes rank 0's value (broadcast), so every replica agrees."""
+    (``parallel.mesh.Placement``): a split leaf keeps this rank's
+    contiguous block of its ``dim`` on its axis, a replicated leaf stays
+    whole and takes rank 0's value (broadcast), so every replica agrees.
+    Raises when a split dimension does not divide its axis."""
     out, whole = {}, []
     for k, v in tree.items():
         place = shardings[k]
-        if place.axis == "model":
-            n, j = place.mesh.shape["model"], place.mesh.coords["model"]
-            if v.shape[0] % n:
-                raise ValueError(f"{k}: {v.shape[0]} rows do not divide the "
-                                 f"model axis {n}")
-            b = v.shape[0] // n
-            out[k] = v[j * b:(j + 1) * b].contiguous()
-        else:
+        if place.axis is None:
             out[k] = v
             whole.append(v)
+        else:
+            out[k] = _block(v, place, k)
     replicate_tree(whole)
+    return out
+
+
+def gather_tree(tree: Dict[str, torch.Tensor], shardings: Dict[str, object]
+                ) -> Dict[str, torch.Tensor]:
+    """Each rank's parts -> full values on every rank (``jax.device_get``
+    of a sharded tree): a split leaf is all-gathered over its axis's group
+    and its blocks concatenated along its ``dim``; a replicated leaf is
+    returned as it is. A collective over every split leaf's group."""
+    out = {}
+    for k, v in tree.items():
+        place = shardings[k]
+        group = None if place.axis is None else place.mesh.group(place.axis)
+        out[k] = gather_dim(v, place.split_dim(v.ndim), group)
     return out
 
 

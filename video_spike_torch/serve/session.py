@@ -16,8 +16,13 @@ every rank holds its row block of the Linear model's first Dense kernel
 request runs on every rank with the same rows (a collective: every rank
 calls ``predict`` with the same batch), each rank computes
 ``x[:, rows] @ W_rows`` and the partial products are all-reduced with SUM
-over the ``model`` axis before the bias. Not in this port yet (ROADMAP.md):
-a captured CUDA graph per bucket.
+over the ``model`` axis before the bias. With
+``models.vtt.vtt_sharding_rules`` the VTT is held split as it trains under
+the production rules: its wide kernels by columns and its session heads
+on the neuron axis, each split layer run as a column-split Dense and the
+heads' neuron blocks gathered (``models/vtt.split_over_model``); every
+rank again calls ``predict`` with the same batch. Not in this port yet
+(ROADMAP.md): a captured CUDA graph per bucket.
 """
 
 from __future__ import annotations
@@ -29,6 +34,10 @@ import numpy as np
 import torch
 
 from video_spike_torch.core.device import resolve_device
+from video_spike_torch.models.vtt import (
+    VideoTemporalTransformer,
+    split_over_model,
+)
 from video_spike_torch.ops.fused_readout import (
     FIRST_BIAS,
     FIRST_KERNEL,
@@ -46,12 +55,13 @@ _ROW_CHUNK = 1 << 16
 def prepare_for_inference(model: torch.nn.Module,
                           params: Mapping[str, torch.Tensor],
                           device: torch.device,
-                          row_split: int = 1,
-                          sharded=()) -> torch.nn.Module:
+                          placements: Optional[Mapping] = None
+                          ) -> torch.nn.Module:
     """The model in eval mode with ``remat`` off, holding `params` on
     `device` in their stored dtype (a bf16 SR-stored kernel stays bf16, as
     the trainer's ``_set_params`` keeps it) without a further copy. A leaf
-    named in `sharded` holds 1/`row_split` of the model's rows."""
+    split by its placement in `placements` holds its block: 1/parts of the
+    model's size along the split dimension."""
     named = dict(model.named_parameters())
     if set(named) != set(params):
         raise KeyError(f"checkpoint params differ from the model's: missing "
@@ -59,10 +69,11 @@ def prepare_for_inference(model: torch.nn.Module,
                        f"{sorted(set(params) - set(named))[:4]}")
     for k, p in named.items():
         t = params[k]
-        want = tuple(p.shape)
-        if k in sharded:
-            want = (want[0] // row_split,) + want[1:]
-        if tuple(t.shape) != want:
+        want = list(p.shape)
+        place = (placements or {}).get(k)
+        if place is not None and place.axis is not None:
+            want[place.split_dim(p.ndim)] //= place.parts
+        if list(t.shape) != want:
             raise ValueError(f"{k}: checkpoint shape {tuple(t.shape)} vs "
                              f"model {tuple(p.shape)}")
         p.data = t.detach().to(device)
@@ -110,21 +121,14 @@ class InferenceSession:
         self.device = resolve_device(device)
         self.mesh = mesh
         self._sharded = ()
+        rules = None
         if mesh is not None:
             rules = (sharding_rules(params, mesh) if sharding_rules
                      else {k: replicated(mesh) for k in params})
             params = mh.put_tree(
                 {k: v.to(self.device) for k, v in params.items()}, rules)
-            self._sharded = tuple(k for k, r in rules.items()
-                                  if r.axis == "model")
-            if set(self._sharded) - {FIRST_KERNEL}:
-                raise NotImplementedError(
-                    f"row-split serving covers the Linear first kernel "
-                    f"only, not {sorted(set(self._sharded) - {FIRST_KERNEL})}")
-        self.model = prepare_for_inference(
-            model, params, self.device,
-            row_split=mesh.shape["model"] if mesh is not None else 1,
-            sharded=self._sharded)
+            self._sharded = self._split(model, rules)
+        self.model = prepare_for_inference(model, params, self.device, rules)
         self.buckets = sorted(set(int(b) for b in bucket_sizes))
         self.needs_session_ids = needs_session_ids
         self._seen: set = set()
@@ -133,6 +137,25 @@ class InferenceSession:
     @property
     def params(self) -> dict:
         return {k: p.detach() for k, p in self.model.named_parameters()}
+
+    @staticmethod
+    def _split(model, rules) -> tuple:
+        """The split leaves' names, with `model` set up to run them: the
+        VTT's column-split kernels and session heads
+        (``models/vtt.split_over_model``), or the Linear first kernel's
+        row split (run by :meth:`_forward`); anything else raises."""
+        split = tuple(k for k, r in rules.items() if r.axis is not None)
+        if not split:
+            return ()
+        if isinstance(model, VideoTemporalTransformer):
+            return split_over_model(model, rules)
+        if set(split) != {FIRST_KERNEL} or rules[FIRST_KERNEL].axis != "model" \
+                or rules[FIRST_KERNEL].dim != 0:
+            raise NotImplementedError(
+                f"the Linear model's split serving covers the rows of its "
+                f"first kernel only, not {sorted(set(split) - {FIRST_KERNEL})}"
+                f" or another split of the first kernel")
+        return split
 
     # ------------------------------------------------------------------
     @classmethod
@@ -210,7 +233,7 @@ class InferenceSession:
         """The model's forward, or with a row-split first kernel: this
         rank's partial product of the first Dense, summed over the
         ``model`` axis, then the bias and the rest of the model."""
-        if not self._sharded:
+        if FIRST_KERNEL not in self._sharded:
             return self.model(*args)
         p, model = self.params, self.model
         w = p[FIRST_KERNEL]

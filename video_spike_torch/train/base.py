@@ -63,7 +63,18 @@ Counterpart of ``video_spike_tpu/train/base.py:BaseTrainer`` on one device
   results and figures, synchronously (no background flush mid-train and
   no async final save), and every rank reads them after a barrier; after
   each epoch the ranks compare checksums of their parameters and raise if
-  the replicas drifted apart. A ``model`` axis > 1 is not trained here.
+  the replicas drifted apart. Under ``training.mesh: {data: D, model: M}``
+  the parameters and the optimizer state stay replicated on all D·M ranks
+  (as in the JAX trainer), ``train_batch_size`` is a data row's batch and
+  the M ranks of a row read the same shard (``shard_files_for_process``
+  by data index) and run the same rows; the gradients, the fused step's
+  factors, the loss sums and the eval rows go over the ``data`` group (the
+  column of ranks sharing this rank's model index), so every rank of the
+  mesh launches the fused step's kernel once a step on the D·b gathered
+  rows; the rank-local trial cache needs each block on one rank and is
+  refused (logged) in favour of streaming, as the JAX trainer refuses its
+  cache when a block's devices span processes; the replica checksums
+  compare all D·M ranks.
 """
 
 from __future__ import annotations
@@ -131,15 +142,13 @@ class BaseTrainer:
             pyplot()   # no matplotlib: fail now, not after training
 
         # the mesh from config (the Accelerate-config analog), e.g.
-        # training.mesh: {data: 4}; default: every rank on data. One rank
-        # drives one device, so a rank's batch always divides its devices.
+        # training.mesh: {data: 4, model: 2}; default: every rank on data.
+        # One rank drives one device, so a rank's batch always divides its
+        # devices; under a model axis the parameters stay replicated (as in
+        # the JAX trainer) and the ranks of a data row run the same rows.
         mesh_cfg = config.training.get("mesh", {}) or {}
         mesh = make_mesh(n_data=mesh_cfg.get("data"),
                          n_model=mesh_cfg.get("model", 1))
-        if mesh.shape["model"] > 1:
-            raise NotImplementedError(
-                "training with a model axis > 1 is not ported (ROADMAP.md); "
-                "set training.mesh.model to 1")
         self.mesh = mesh
         self._dp_group = mesh.group("data")
         self._multihost = mh.is_multihost()
@@ -154,11 +163,12 @@ class BaseTrainer:
 
         seed = seed if seed is not None else config.get("seed", 42)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        # schedule horizon = global steps: each rank takes one global step
-        # per local batch of its shard, so the count divides by the ranks
+        # schedule horizon = global steps: each data row takes one global
+        # step per local batch of its shard, so the count divides by the
+        # data axis
         total_steps = (len(dataset_split_dict["train"])
                        // (config.training.train_batch_size
-                           * mh.process_count())
+                           * mesh.shape["data"])
                        * config.training.num_epochs)
         frozen = getattr(model, "frozen_param_paths", None)
         self._frozen_paths = tuple(frozen()) if callable(frozen) else ()
@@ -497,7 +507,7 @@ class BaseTrainer:
         # the loader batches its shuffled shard in order: full batches are
         # num_trials // bs, known without reading the epoch
         steps = mh.global_min(self.train_loader.num_trials // bs)
-        n_valid = bs * mh.process_count()
+        n_valid = bs * self.mesh.shape["data"]
         self._init_if_needed()
         losses = []
         stream = prefetch_to_device(self.train_loader, self.device, depth=2,
@@ -534,7 +544,7 @@ class BaseTrainer:
             return False
         n_data = self.mesh.shape["data"]
         bs_global = (self.config.training.train_batch_size
-                     * mh.process_count())
+                     * n_data)
         mine, g_min, private = mh.data_axis_blocks(self.mesh)
         if not private or g_min == 0 or bs_global % n_data:
             self.log.info(
@@ -843,9 +853,10 @@ class BaseTrainer:
 
     def _check_replicas(self) -> str:
         """The ranks' common parameter checksum as hex; raises when the
-        replicas, which must stay bitwise equal, drifted apart."""
+        replicas, which must stay bitwise equal, drifted apart (every rank
+        of the mesh: the model-axis copies of a data row too)."""
         self.replica_checksums.append(
-            mh.check_replicas(self.params, self._dp_group))
+            mh.check_replicas(self.params, mh.world_group()))
         return f"{self.replica_checksums[-1]:016x}"
 
     def test_model(self) -> Optional[dict]:

@@ -42,7 +42,11 @@ reports bits per spike and R² per session over its real neurons only.
   all-reduced with SUM. Eval rows are split over the ranks and the
   predictions gathered; a preemption is agreed with ``global_any``; rank 0
   alone writes, synchronously, and every rank reads after a barrier; the
-  ranks compare parameter checksums after each epoch.
+  ranks compare parameter checksums after each epoch. Under
+  ``training.mesh: {data: D, model: M}`` the parameters stay replicated on
+  all D·M ranks (as in the JAX trainer): the M ranks of a data row read
+  the same shards and run the same rows, the collectives above go over
+  the ``data`` group, and the checksums compare all D·M ranks.
 """
 
 from __future__ import annotations
@@ -89,6 +93,39 @@ def masked_poisson_nll(log_rates: torch.Tensor, targets: torch.Tensor,
     return (nll * mask).sum() / torch.clamp(count, min=1.0)
 
 
+def make_vtt_tensor_step(model, params: Dict[str, torch.Tensor], mesh, tx):
+    """The tensor-sharded VTT train step under the production sharding
+    rules (the JAX package's ``DCN_MODE=tensor`` / ``_dryrun_body`` step):
+    `params` (full values, the same on every rank) are placed by
+    ``models/vtt.vtt_sharding_rules``, `model` runs their split
+    (``split_over_model``), and ``step(params, opt_state, video, ap, sids,
+    nmask)`` takes this rank's data block of the batch, with
+    :func:`masked_poisson_nll` over the global batch, value and grad, and
+    ``tx`` on each rank's blocks (``parallel/shard_map_step.
+    make_tensor_train_step``). Returns ``(step, params, opt_state,
+    placements)``; ``multihost.gather_tree(params, placements)`` gives the
+    full values back."""
+    from video_spike_torch.models.vtt import (
+        split_over_model,
+        vtt_sharding_rules,
+    )
+    from video_spike_torch.parallel.shard_map_step import (
+        make_tensor_train_step,
+    )
+
+    rules = vtt_sharding_rules(params, mesh)
+    params = mh.put_tree(params, rules)
+    split_over_model(model, rules)
+    group = mesh.group("data")
+
+    def loss_fn(p, video, ap, sids, nmask):
+        out = torch.func.functional_call(model, p, (video, sids))
+        return masked_poisson_nll(out, ap, nmask, video.shape[0], group)
+
+    step = make_tensor_train_step(loss_fn, tx, mesh)
+    return step, params, tx.init(params), rules
+
+
 class MultiSessionTrainer:
     """Mixed-session staged batches (or single-session round-robin
     streaming) through one train step on one device, or data-parallel
@@ -99,12 +136,10 @@ class MultiSessionTrainer:
                  max_neurons: Optional[int] = None, device="cuda"):
         self.device = resolve_device(device)
         mesh_cfg = config.training.get("mesh", {}) or {}
+        # under a model axis the parameters stay replicated (as in the JAX
+        # trainer) and the ranks of a data row run the same rows
         mesh = make_mesh(n_data=mesh_cfg.get("data"),
                          n_model=mesh_cfg.get("model", 1))
-        if mesh.shape["model"] > 1:
-            raise NotImplementedError(
-                "training with a model axis > 1 is not ported (ROADMAP.md); "
-                "set training.mesh.model to 1")
         self.mesh = mesh
         self._dp_group = mesh.group("data")
         self._multihost = mh.is_multihost()
@@ -137,7 +172,9 @@ class MultiSessionTrainer:
             self.splits[eid] = split
             # this rank's training shard; val/test stay whole on every rank
             self.train_loaders[eid] = SessionDataset(
-                mh.shard_files_for_process(split["train"]), bs, shuffle=True,
+                mh.shard_files_for_process(split["train"],
+                                           mesh.shape["model"]),
+                bs, shuffle=True,
                 seed=seed, modalities=mods)
             self.val_loaders[eid] = SessionDataset(
                 split["val"], bs, modalities=mods)
@@ -148,10 +185,10 @@ class MultiSessionTrainer:
             self.n_neurons[eid] = probe["ap"].shape[2]
         self.max_neurons = max_neurons or max(self.n_neurons.values())
 
-        # global steps an epoch: each rank takes one per local batch
+        # global steps an epoch: each data row takes one per local batch
         steps_per_epoch = sum(len(split["train"]) // bs
                               for split in self.splits.values())
-        steps_per_epoch //= mh.process_count()
+        steps_per_epoch //= mesh.shape["data"]
         self.tx, self.schedule = make_optimizer(
             config, steps_per_epoch * config.training.num_epochs)
         self.opt_state = None
@@ -539,7 +576,7 @@ class MultiSessionTrainer:
                         "eval_rsquared": ev["eval_rsquared"]}
                 if self._multihost:
                     self.replica_checksums.append(
-                        mh.check_replicas(self.params, self._dp_group))
+                        mh.check_replicas(self.params, mh.world_group()))
                     line["replica_checksum"] = \
                         f"{self.replica_checksums[-1]:016x}"
                 self.log.info(f"{line}")
