@@ -116,6 +116,15 @@ Phases, one JSON line each on stdout:
 16. vtt_serve: an ``InferenceSession`` over the VTT phase's
     ``model_best.pt``, 3 rows of mixed session ids in the 4-bucket and the
     same rows with the ids left out, against the direct forward;
+16b. split_serve_path: both ``model_best``s served split over 2 gloo
+    ranks sharing the card, under any rules: the full-width Linear under
+    ``first_layer_sharding_rules(min_dim=256)`` (three kernels split by
+    rows) and ``vtt_sharding_rules`` (three by columns) at buckets 1, 4
+    and 16, the VTT under ``first_layer_sharding_rules(min_dim=512)``
+    (every 512-input kernel by rows) at bucket 4 with session ids: each
+    against the one-rank session, the ranks bitwise equal, the shard
+    shapes, no leaf gathered, ``predict`` ms against the one-rank session
+    and the bytes all-reduced and all-gathered a request;
 17. export: ``cli.export_model`` on the full-width Linear checkpoint at
     batch 8 and ``load_exported`` at batches 3 and 8, and the VTT with
     session ids, against ``session.predict``; both with a symbolic batch;
@@ -137,13 +146,15 @@ Phases, one JSON line each on stdout:
 21. a ``{"kernels": [...]}`` line (the fused readout runs on the Linear,
     lean Linear, streamed Linear, data-parallel Linear, model-axis Linear
     and probe paths; the accumulation, VTT, tensor-sharded VTT, RRR, SSL,
-    pretraining, serving, export, CEBRA and ETL paths must launch it 0
-    times);
+    pretraining, serving, split serving, export, CEBRA and ETL paths must
+    launch it 0 times);
 22. last line: ``{"ok": true, "device": {...}}``.
 
-Any failure is an uncaught exception and a non-zero exit. Without a CUDA
-card, or without the rest of the repository beside it, it exits non-zero
-and prints no result. Imports neither JAX nor the JAX package.
+Any failure is an uncaught exception and a non-zero exit. Every rank of a
+multi-rank phase ends through ``core/runtime.exit_rank``, and a launch
+whose ranks do not all exit 0 fails the run. Without a CUDA card, or
+without the rest of the repository beside it, it exits non-zero and
+prints no result. Imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -1172,6 +1183,7 @@ import torch
 import torch.distributed as dist
 from video_spike_torch.cli import train as train_cli
 from video_spike_torch.core.cli import get_args
+from video_spike_torch.core.runtime import exit_rank
 from video_spike_torch.ops import fused_readout as fr
 from video_spike_torch.parallel import multihost as mh
 """ + _CHILD_TIMING + r"""
@@ -1243,6 +1255,7 @@ out = {"rank": rank, "world": world, "backend": dist.get_backend(),
        "same_rows": same_rows}
 with open(f"{cfg['out']}{rank}.json", "w") as f:
     json.dump(out, f)
+exit_rank()
 """
 
 # one rank under NCCL: cli.train 2 epochs, NCCL's collectives on the card,
@@ -1253,6 +1266,7 @@ import torch
 import torch.distributed as dist
 from video_spike_torch.cli import train as train_cli
 from video_spike_torch.core.cli import get_args
+from video_spike_torch.core.runtime import exit_rank
 from video_spike_torch.ops import fused_readout as fr
 """ + _CHILD_TIMING + r"""
 cfg = json.loads(sys.argv[1])
@@ -1274,6 +1288,7 @@ out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
        "ms_per_step_windows": ms}
 with open(f"{cfg['out']}0.json", "w") as f:
     json.dump(out, f)
+exit_rank()
 """
 
 # every rank: the Linear model_best served with the first kernel's rows
@@ -1282,7 +1297,7 @@ DP_SERVE_CHILD = r"""
 import json, sys
 import numpy as np
 import torch
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import exit_rank, setup_runtime
 from video_spike_torch.models.linear import first_layer_sharding_rules
 from video_spike_torch.ops import fused_readout as fr
 from video_spike_torch.parallel import multihost as mh
@@ -1300,6 +1315,7 @@ outs = {str(n): session.predict(rows[:n]) for n in cfg["sizes"]}
 np.savez(f"{cfg['out']}{mh.process_index()}.npz",
          kernel_rows=session.params[fr.FIRST_KERNEL].shape[0],
          launches=fr.apply_scaled_outer.launches, **outs)
+exit_rank()
 """
 
 
@@ -1624,7 +1640,7 @@ import hashlib, json, sys
 import torch
 import torch.distributed as dist
 from video_spike_torch.cli import train as train_cli
-from video_spike_torch.core.runtime import teardown_runtime
+from video_spike_torch.core.runtime import exit_rank
 from video_spike_torch.ops import fused_readout as fr
 from video_spike_torch.parallel import multihost as mh
 from video_spike_torch.train.checkpoint import load_checkpoint
@@ -1655,7 +1671,7 @@ out = {"rank": rank, "world": mh.process_count(),
        "test": res["test_res"], "log_dir": res["log_dir"]}
 with open(f"{cfg['out']}{rank}.json", "w") as f:
     json.dump(out, f)
-teardown_runtime()
+exit_rank()
 """
 
 # every rank: the tensor-sharded VTT step in f32, then in bf16 (rank 0
@@ -1664,7 +1680,7 @@ TP_VTT_CHILD = r"""
 import json, sys
 import torch
 from chip_smoke import tensor_vtt_run
-from video_spike_torch.core.runtime import setup_runtime, teardown_runtime
+from video_spike_torch.core.runtime import exit_rank, setup_runtime
 from video_spike_torch.ops import fused_readout as fr
 from video_spike_torch.parallel import multihost as mh
 
@@ -1681,7 +1697,7 @@ for d in ("f32", "bf16"):
 out = {"runs": runs, "launches": fr.apply_scaled_outer.launches}
 with open(f"{cfg['out']}{mh.process_index()}.json", "w") as f:
     json.dump(out, f)
-teardown_runtime()
+exit_rank()
 """
 
 # every rank: the VTT model_best served under the production rules on a
@@ -1689,7 +1705,7 @@ teardown_runtime()
 TP_SERVE_CHILD = r"""
 import json, sys
 import numpy as np
-from video_spike_torch.core.runtime import setup_runtime, teardown_runtime
+from video_spike_torch.core.runtime import exit_rank, setup_runtime
 from video_spike_torch.models.vtt import vtt_sharding_rules
 from video_spike_torch.ops import fused_readout as fr
 from video_spike_torch.parallel import multihost as mh
@@ -1710,7 +1726,7 @@ shapes = {k: list(v.shape) for k, v in session.params.items()
 np.savez(f"{cfg['out']}{mh.process_index()}.npz",
          shapes=json.dumps(shapes), launches=fr.apply_scaled_outer.launches,
          **outs)
-teardown_runtime()
+exit_rank()
 """
 
 
@@ -3161,6 +3177,184 @@ def phase_vtt_serve(work: Path) -> dict:
     return out
 
 
+# split serving under any rules: the Linear model_best under the first-layer
+# rules and the production VTT rules, the VTT model_best under the
+# first-layer rules, each on 2 gloo ranks sharing the card
+SPLIT_BUCKETS = (1, 4, 16)
+SPLIT_SIZES = (1, 3, 16)                # rows a request (3 pads to 4)
+SPLIT_VTT_ROWS = 4
+SPLIT_REPS = 3                          # timed predict calls a size
+SPLIT_CASES = (("linear", "first256"), ("linear", "vtt"),
+               ("vtt", "first512"))
+
+# every rank: each case's session, its requests timed (host clock; predict
+# returns host arrays), the bytes its collectives moved a request, the
+# split leaves' shard shapes and the gathered leaves
+SPLIT_SERVE_CHILD = r"""
+import functools, json, sys, time
+import numpy as np
+from video_spike_torch.core.runtime import exit_rank, setup_runtime
+from video_spike_torch.models.linear import first_layer_sharding_rules
+from video_spike_torch.models.vtt import vtt_sharding_rules
+from video_spike_torch.ops import fused_readout as fr
+from video_spike_torch.parallel import multihost as mh
+from video_spike_torch.parallel import tensor
+from video_spike_torch.parallel.mesh import make_mesh
+from video_spike_torch.serve.session import InferenceSession
+
+cfg = json.loads(sys.argv[1])
+assert setup_runtime("cuda")
+mesh = make_mesh(n_data=1, n_model=mh.process_count())
+fr.apply_scaled_outer.launches = 0
+report, outs = {}, {}
+for model, rules in cfg["cases"]:
+    c = cfg[model]
+    rule = (vtt_sharding_rules if rules == "vtt" else functools.partial(
+        first_layer_sharding_rules, min_dim=int(rules[5:])))
+    session = InferenceSession.from_checkpoint(
+        c["model_config"], c["ckpt_dir"], bucket_sizes=c["buckets"],
+        device="cuda", mesh=mesh, sharding_rules=rule)
+    rows = np.load(c["rows"])
+    sids = np.load(c["sids"]) if "sids" in c else None
+    r = {"gathered_leaves": session.stats["gathered_leaves"],
+         "shard_shapes": {}, "predict_ms": {}, "bytes_per_request": {}}
+    for n in c["sizes"]:
+        args = (rows[:n],) + (() if sids is None else (sids[:n],))
+        b0 = (tensor.sum_over_model.bytes, tensor.gather_last.bytes)
+        outs[f"{model}_{rules}_{n}"] = session.predict(*args)
+        r["bytes_per_request"][str(n)] = {
+            "all_reduced": tensor.sum_over_model.bytes - b0[0],
+            "all_gathered": tensor.gather_last.bytes - b0[1]}
+        ms = []
+        for _ in range(cfg["reps"]):
+            mh.barrier()
+            t0 = time.perf_counter()
+            session.predict(*args)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        r["predict_ms"][str(n)] = sorted(ms)[len(ms) // 2]
+    r["shard_shapes"] = {k: list(v.shape) for k, v in session.params.items()}
+    report[f"{model}_{rules}"] = r
+    del session
+report["launches"] = fr.apply_scaled_outer.launches
+with open(f"{cfg['out']}{mh.process_index()}.json", "w") as f:
+    json.dump(report, f)
+np.savez(f"{cfg['out']}{mh.process_index()}.npz", **outs)
+exit_rank()
+"""
+
+
+def _split_want(params: dict, rules: str) -> dict:
+    """{leaf: split dim} of a rule set on a {data: 1, model: 2} grid."""
+    from video_spike_torch.models.linear import first_layer_sharding_rules
+    from video_spike_torch.models.vtt import vtt_sharding_rules
+    from video_spike_torch.parallel.mesh import Mesh
+
+    mesh = Mesh({"data": 1, "model": 2}, {"data": 0, "model": 0},
+                {"data": None, "model": None})
+    placed = (vtt_sharding_rules(params, mesh) if rules == "vtt" else
+              first_layer_sharding_rules(params, mesh,
+                                         min_dim=int(rules[5:])))
+    return {k: p.split_dim(params[k].ndim) for k, p in placed.items()
+            if p.axis is not None}
+
+
+def phase_split_serve_path(work: Path) -> dict:
+    """The serve phases' ``model_best``s served split over 2 gloo ranks
+    sharing the card: the full-width Linear under
+    ``first_layer_sharding_rules(min_dim=256)`` (three kernels split by
+    rows) and under ``vtt_sharding_rules`` (kernels split by columns), at
+    buckets 1, 4 and 16; the VTT under ``first_layer_sharding_rules(
+    min_dim=512)`` (every 512-input kernel split by rows) at bucket 4 with
+    session ids. Each against the one-rank session on the same rows within
+    SERVE_REL_BOUND, the ranks bitwise equal, every split leaf holding half
+    its rows or columns, no leaf gathered, the fused readout never
+    launched; ``predict`` ms by size against the one-rank session, and the
+    bytes each request all-reduces and all-gathers."""
+    import numpy as np
+    import yaml
+
+    from video_spike_torch.serve import InferenceSession
+
+    t_phase = time.perf_counter()
+    _free_card()
+    rows = _fixture_trials(work / "data", "smokeeid0",
+                           max(SPLIT_SIZES)).reshape(max(SPLIT_SIZES), -1)
+    video, sids = _vtt_trials(work, SPLIT_VTT_ROWS)
+    for name, arr in (("split_rows", rows), ("split_video", video),
+                      ("split_sids", sids)):
+        np.save(work / f"{name}.npy", arr)
+    cases = {
+        "linear": {"model_config": yaml.safe_load(
+            _serve_yaml(work).read_text()),
+            "ckpt_dir": str(_ckpt_dir(work / "logs")),
+            "buckets": list(SPLIT_BUCKETS), "sizes": list(SPLIT_SIZES),
+            "rows": str(work / "split_rows.npy")},
+        "vtt": {"model_config": yaml.safe_load(
+            (ROOT / "configs/model/vtt_video.yaml").read_text()),
+            "ckpt_dir": str(_ckpt_dir(work / "vtt_logs")),
+            "buckets": [SPLIT_VTT_ROWS], "sizes": [SPLIT_VTT_ROWS],
+            "rows": str(work / "split_video.npy"),
+            "sids": str(work / "split_sids.npy")}}
+    launch_s = _torchrun(SPLIT_SERVE_CHILD, 2, {
+        **cases, "cases": [list(c) for c in SPLIT_CASES],
+        "reps": SPLIT_REPS, "out": str(work / "split_serve")},
+        env={"VST_DIST_BACKEND": "gloo"})
+    served = [np.load(work / f"split_serve{r}.npz") for r in range(2)]
+    reports = [json.loads((work / f"split_serve{r}.json").read_text())
+               for r in range(2)]
+    out = {"cases": {}, "bound": SERVE_REL_BOUND,
+           "fused_readout_launches": sum(r["launches"] for r in reports),
+           "launch_seconds": launch_s}
+    bad = []
+    for model in ("linear", "vtt"):
+        c = cases[model]
+        one = InferenceSession.from_checkpoint(
+            c["model_config"], c["ckpt_dir"], bucket_sizes=c["buckets"],
+            device="cuda")
+        full = {k: list(v.shape) for k, v in one.params.items()}
+        src = video if model == "vtt" else rows
+        for _, rules in (x for x in SPLIT_CASES if x[0] == model):
+            key = f"{model}_{rules}"
+            r0 = reports[0][key]
+            want = _split_want(one.params, rules)
+            shapes = {k: v for k, v in r0["shard_shapes"].items()
+                      if v != full[k]}
+            errs, ms = {}, {}
+            for n in c["sizes"]:
+                args = (src[:n],) + ((sids[:n],) if model == "vtt" else ())
+                ref = one.predict(*args)
+                got = served[0][f"{key}_{n}"]
+                errs[str(n)] = _rel_err(got, ref)
+                if not np.array_equal(got, served[1][f"{key}_{n}"]):
+                    bad.append(f"{key}_{n}: ranks differ")
+                times = []
+                for _ in range(SPLIT_REPS):
+                    t0 = time.perf_counter()
+                    one.predict(*args)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                ms[str(n)] = sorted(times)[len(times) // 2]
+            halved = all(
+                k in shapes and shapes[k][d] * 2 == full[k][d]
+                for k, d in want.items()) and set(shapes) == set(want)
+            out["cases"][key] = {
+                "split_leaves": {k: [full[k], shapes.get(k)] for k in want},
+                "gathered_leaves": [r[key]["gathered_leaves"]
+                                    for r in reports],
+                "max_rel_err": errs, "predict_ms_split": r0["predict_ms"],
+                "predict_ms_one_rank": ms,
+                "bytes_per_request": r0["bytes_per_request"]}
+            if (max(errs.values()) > SERVE_REL_BOUND or not halved
+                    or any(r[key]["gathered_leaves"] for r in reports)):
+                bad.append(key)
+        del one
+        _free_card()
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit("split_serve_path", **out)
+    if bad or out["fused_readout_launches"]:
+        raise AssertionError(f"split serving: {bad}, {out}")
+    return out
+
+
 def phase_export(work: Path) -> dict:
     """``cli.export_model`` on the full-width Linear checkpoint at batch 8,
     then ``load_exported`` at batches 3 and 8 against ``session.predict``;
@@ -3540,6 +3734,7 @@ def main() -> int:
         phase_probe_step_time(work)
         serve = phase_serve_main_path(work)
         vtt_serve = phase_vtt_serve(work)
+        split_serve = phase_split_serve_path(work)
         export = phase_export(work)
         cebra, cebra_model = phase_cebra_main_path(work)
         phase_cebra_card_vs_cpu(work, cebra_model)
@@ -3569,12 +3764,13 @@ def main() -> int:
         "probe": probe["launches"], "probe_resume": probe["resume_launches"],
         "serve": serve["fused_readout_launches"]
         + vtt_serve["fused_readout_launches"],
+        "split_serve": split_serve["fused_readout_launches"],
         "export": export["fused_readout_launches"],
         "cebra": cebra["fused_readout_launches"],
         "etl": etl["fused_readout_launches"]}
     if any(kernel["launches_by_path"][p] for p in (
-            "linear_accum", "serve", "export", "cebra", "etl", "tensor_vtt",
-            "tensor_serve")):
+            "linear_accum", "serve", "split_serve", "export", "cebra",
+            "etl", "tensor_vtt", "tensor_serve")):
         raise AssertionError(f"the fused readout ran under accumulation or "
                              f"on an inference, embedding or ETL path: "
                              f"{kernel['launches_by_path']}")

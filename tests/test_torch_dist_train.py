@@ -84,8 +84,9 @@ def torch_ranks(module, env, world=2, prelude=""):
     """Start `world` port ranks under torch.distributed.run; a `prelude`
     runs in each rank before the module's ``main()``."""
     if prelude:
-        return torch_code(f"{prelude}\nfrom {module} import main\nmain()\n",
-                          env, world)
+        return torch_code(
+            f"{prelude}\nfrom video_spike_torch.core.runtime import run_rank"
+            f"\nfrom {module} import main\nrun_rank(main)\n", env, world)
     return [_spawn(_LAUNCH + [f"--nproc_per_node={world}", "-m", module],
                    env)]
 

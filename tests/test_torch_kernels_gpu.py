@@ -169,7 +169,7 @@ DP_FUSED = r"""
 import sys
 import torch
 import torch.distributed as dist
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import exit_rank, setup_runtime
 from video_spike_torch.models.linear import LinearModel
 from video_spike_torch.ops import fused_readout as fr
 from video_spike_torch.ops import optim
@@ -200,6 +200,7 @@ assert fr.apply_scaled_outer.launches == 3, fr.apply_scaled_outer.launches
 sums = mh.replica_checksums({"w": w}, dist.group.WORLD)
 assert len(set(sums)) == 1, sums
 torch.save(w.cpu(), f"{sys.argv[1]}{r}.pt")
+exit_rank()
 """
 
 
@@ -223,7 +224,7 @@ def test_two_gloo_ranks_on_one_card_keep_w_bitwise_equal(cuda_device,
 TP_LAYERS = r"""
 import sys
 import torch
-from video_spike_torch.core.runtime import setup_runtime, teardown_runtime
+from video_spike_torch.core.runtime import exit_rank, setup_runtime
 from video_spike_torch.parallel import multihost as mh
 from video_spike_torch.parallel.mesh import make_mesh
 from video_spike_torch.parallel.tensor import column_dense
@@ -249,7 +250,7 @@ errs = [rel(y2, y1), rel(dx2, dx1), rel(dk2, dk1[:, 512 * r:512 * r + 512]),
         rel(db2, db1)]
 assert y2.is_cuda and dx2.is_cuda
 torch.save(errs, f"{sys.argv[1]}{r}.pt")
-teardown_runtime()
+exit_rank()
 """
 
 

@@ -192,7 +192,7 @@ import json
 import numpy as np
 import torch
 import torch.distributed as dist
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import exit_rank, setup_runtime
 from video_spike_torch.parallel import multihost as mh
 from video_spike_torch.parallel.mesh import Placement, make_mesh, replicated
 
@@ -240,6 +240,7 @@ log.info(f"info-from-rank-{r}")
 log.error(f"error-from-rank-{r}")
 mh.barrier()
 print(f"pid={r} result={json.dumps(out)}", flush=True)
+exit_rank()
 """
 
 
@@ -275,7 +276,7 @@ def test_two_rank_helpers():
 DP_STEP = r"""
 import sys
 import torch
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import exit_rank, setup_runtime
 from video_spike_torch.models.linear import LinearModel
 from video_spike_torch.ops.optim import AdamW
 from video_spike_torch.ops.poisson import poisson_nll_mean
@@ -301,6 +302,7 @@ for _ in range(2):
                              inp["ap"][r * b:(r + 1) * b])
     losses.append(float(loss))
 torch.save({"params": params, "losses": losses}, f"{sys.argv[2]}{r}.pt")
+exit_rank()
 """
 
 
@@ -350,7 +352,7 @@ FUSED_STEP = r"""
 import sys
 import torch
 import torch.distributed as dist
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import exit_rank, setup_runtime
 from video_spike_torch.models.linear import LinearModel
 from video_spike_torch.ops import fused_readout as fr
 from video_spike_torch.ops import optim
@@ -378,6 +380,7 @@ for i, (x, ap) in enumerate(zip(inp["xs"], inp["aps"])):
 torch.save({"params": params, "losses": losses,
             "launches": fr.apply_scaled_outer.launches},
            f"{sys.argv[2]}{r}.pt")
+exit_rank()
 """
 
 
@@ -468,7 +471,7 @@ import functools
 import sys
 import numpy as np
 import torch
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import exit_rank, setup_runtime
 from video_spike_torch.models.linear import (
     LinearModel, first_layer_sharding_rules)
 from video_spike_torch.parallel import multihost as mh
@@ -487,6 +490,7 @@ outs = [session.predict(x) for x in inp["xs"]]
 torch.save({"outs": outs, "rows": session.params[
     "encoder.Dense_0.kernel"].shape[0], "stats": session.stats},
     f"{sys.argv[2]}{mh.process_index()}.pt")
+exit_rank()
 """
 
 
@@ -518,6 +522,211 @@ def test_model_sharded_session_two_ranks_matches_jax(tmp_path):
         for got, ref in zip(out["outs"], refs):
             assert got.shape == ref.shape
             np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+# every split the JAX session serves, on {data: 1, model: 2}: one launch
+# serves every case; each rank saves its outputs, shard shapes, gathered
+# leaves and the bytes its collectives moved
+SPLIT_SERVE = r"""
+import functools
+import sys
+import torch
+from video_spike_torch.core.runtime import exit_rank, setup_runtime
+from video_spike_torch.models.linear import (
+    LinearModel, first_layer_sharding_rules)
+from video_spike_torch.models.vtt import (
+    VideoTemporalTransformer, vtt_sharding_rules)
+from video_spike_torch.parallel import multihost as mh
+from video_spike_torch.parallel import tensor
+from video_spike_torch.parallel.mesh import Placement, make_mesh
+from video_spike_torch.serve.session import InferenceSession
+
+assert setup_runtime("cpu")
+torch.set_num_threads(1)
+inp = torch.load(sys.argv[1], weights_only=False)
+mesh = make_mesh(n_data=1, n_model=2)
+
+
+def vtt_ln(params, m):
+    rules = vtt_sharding_rules(params, m)
+    rules.update({k: Placement(m, "model") for k in params
+                  if k.endswith(".scale")})
+    return rules
+
+
+def rules(name):
+    if name.startswith("first"):
+        return functools.partial(first_layer_sharding_rules,
+                                 min_dim=int(name[5:]))
+    return vtt_sharding_rules if name == "vtt" else vtt_ln
+
+
+out = {}
+for name, case in inp.items():
+    vtt = "video" in case
+    model = (VideoTemporalTransformer(**case["kw"], dtype=torch.float32)
+             if vtt else LinearModel(**case["kw"],
+                                     compute_dtype=torch.float32))
+    session = InferenceSession(
+        model, case["params"], bucket_sizes=(1, 4, 8), device="cpu",
+        needs_session_ids=vtt, mesh=mesh, sharding_rules=rules(case["rules"]))
+    tensor.sum_over_model.bytes = tensor.gather_last.bytes = 0
+    outs = [session.predict(case["video"][:n], case["sids"][:n])
+            for n in (3, 4)] if vtt else [session.predict(x)
+                                          for x in case["xs"]]
+    out[name] = {"outs": outs, "gathered": session.stats["gathered_leaves"],
+                 "shapes": {k: list(v.shape)
+                            for k, v in session.params.items()},
+                 "bytes": [tensor.sum_over_model.bytes,
+                           tensor.gather_last.bytes]}
+torch.save(out, f"{sys.argv[2]}{mh.process_index()}.pt")
+exit_rank()
+"""
+
+VTT_KW = dict(n_sessions=3, max_neurons=8, t_frames=4, t_bins=10,
+              patch_size=16, hidden=128, frame_depth=1, temporal_depth=1,
+              heads=2, mlp_dim=256, frame_stride=2)
+SPLIT_CASES = ("linear_first64", "linear_vtt", "vtt_first128", "vtt_ln")
+
+
+def _jax_split_rules(name):
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    import __graft_entry__ as graft
+    from video_spike_tpu.models.linear import first_layer_sharding_rules
+
+    if name.startswith("first"):
+        return lambda p, m: first_layer_sharding_rules(
+            p, m, min_dim=int(name[5:]))
+    if name == "vtt":
+        return graft._vtt_sharding_rules
+
+    def vtt_ln(p, m):
+        ln = jax.tree_util.tree_map_with_path(
+            lambda path, leaf: str(path[-1].key) == "scale", p)
+        return jax.tree.map(
+            lambda r, is_ln: NamedSharding(m, P("model")) if is_ln else r,
+            graft._vtt_sharding_rules(p, m), ln)
+    return vtt_ln
+
+
+@pytest.fixture(scope="module")
+def split_served(tmp_path_factory):
+    """Every case's inputs, the JAX model and params, and what both ranks
+    served (one launch)."""
+    from video_spike_tpu.models.vtt import VideoTemporalTransformer as JVTT
+
+    tmp = tmp_path_factory.mktemp("split_serve")
+    rng = np.random.default_rng(8)
+    in_dim = 300
+    xs = [rng.normal(size=(n, in_dim)).astype(np.float32) for n in (3, 8)]
+    jl = JLinear(**WIDTHS, compute_dtype=jnp.float32)
+    jlp = jl.init(jax.random.PRNGKey(2), jnp.asarray(xs[1]))
+    video = rng.integers(0, 255, (4, 4, 1, 32, 32), dtype=np.uint8)
+    sids = np.asarray([2, 0, 1, 1], np.int32)
+    jv = JVTT(**VTT_KW, dtype=jnp.float32)
+    jvp = jv.init(jax.random.PRNGKey(3), jnp.asarray(video),
+                  jnp.asarray(sids))
+    cases, inp = {}, {}
+    for name in SPLIT_CASES:
+        model, rules = name.split("_")
+        if model == "linear":
+            cases[name] = (jl, jlp, rules)
+            inp[name] = {"kw": dict(input_dim=in_dim, **WIDTHS), "xs": xs,
+                         "params": _port_params(jlp, in_dim),
+                         "rules": rules}
+        else:
+            cases[name] = (jv, jvp, rules)
+            inp[name] = {"kw": VTT_KW, "video": video, "sids": sids,
+                         "rules": rules,
+                         "params": flax_to_torch(jax.device_get(jvp))}
+    torch.save(inp, tmp / "in.pt")
+    procs = torch_code(SPLIT_SERVE, _env(),
+                       args=(tmp / "in.pt", tmp / "out"))
+    _wait(procs)
+    ranks = [torch.load(tmp / f"out{r}.pt", weights_only=False)
+             for r in range(2)]
+    return cases, inp, ranks
+
+
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_split_session_two_ranks_matches_jax(split_served, name):
+    """The Queue C 3 input (the Linear, 300 inputs) under
+    ``first_layer_sharding_rules(min_dim=64)`` (two kernels split by rows)
+    and under the production VTT rules (the head split by columns); a
+    small VTT under ``first_layer_sharding_rules(min_dim=hidden)`` (every
+    128-input kernel split by rows); the VTT rules plus every LayerNorm
+    scale split, which the session gathers whole and lists. Both ranks
+    serve the same numbers, within rtol 1e-5 of the JAX session under the
+    same rules on {data: 1, model: 2}."""
+    from video_spike_tpu.serve.session import InferenceSession as JSession
+
+    from video_spike_torch.models.vtt import HEAD_LEAVES
+
+    cases, inp, ranks = split_served
+    jm, jp, rules = cases[name]
+    vtt = "video" in inp[name]
+    js = JSession(jm, jp, bucket_sizes=(1, 4, 8), needs_session_ids=vtt,
+                  mesh=_jax_mesh(1, 2), sharding_rules=_jax_split_rules(rules))
+    if vtt:
+        case = inp[name]
+        refs = [js.predict(case["video"][:n], case["sids"][:n])
+                for n in (3, 4)]
+    else:
+        refs = [js.predict(x) for x in inp[name]["xs"]]
+    full = {k: list(v.shape) for k, v in inp[name]["params"].items()}
+    got = [r[name] for r in ranks]
+    split = {k for k, v in got[0]["shapes"].items() if v != full[k]}
+    want_split = {
+        "linear_first64": {"encoder.Dense_0.kernel",
+                           "encoder.Dense_1.kernel"},
+        "linear_vtt": {"decoder.Dense_1.kernel"},
+        "vtt_first128": {k for k, v in full.items() if k.endswith("kernel")
+                         and len(v) == 2 and v[0] >= 128},
+        "vtt_ln": {k for k, v in full.items()
+                   if (k.endswith("kernel") and len(v) == 2
+                       and v[1] >= 256) or k in HEAD_LEAVES}}[name]
+    assert split == want_split
+    for k in split:
+        rows = rules.startswith("first") and k.endswith("kernel")
+        dim = 0 if rows else len(full[k]) - 1
+        assert got[0]["shapes"][k][dim] * 2 == full[k][dim], k
+    gathered = sorted(k for k in full if k.endswith(".scale")) \
+        if name == "vtt_ln" else []
+    assert all(sorted(g["gathered"]) == gathered for g in got)
+    assert got[0]["bytes"][0] > 0 if rules.startswith("first") else \
+        got[0]["bytes"][1] > 0
+    for a, b, ref in zip(got[0]["outs"], got[1]["outs"], refs):
+        np.testing.assert_array_equal(a, b)
+        assert a.shape == ref.shape
+        np.testing.assert_allclose(a, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [40, (1 << 16) + 3])
+def test_row_dense_at_world_one_matches_dense(dtype, rows):
+    """``row_dense`` with no group (the whole kernel as the one block)
+    against the whole-kernel Dense: float32 rtol 1e-5 (atol 1e-6, the
+    f32 sums in ``ROW_CHUNK`` pieces); bfloat16 within 1 bf16 ulp of the
+    output's scale (both round an f32 sum once)."""
+    from video_spike_torch.models.linear import Dense, layer_dense
+    from video_spike_torch.parallel.tensor import row_dense
+
+    rng = np.random.default_rng(rows)
+    layer = Dense(rows, 6)
+    layer.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        layer.bias.normal_(generator=torch.Generator().manual_seed(1))
+    x = torch.from_numpy(rng.normal(size=(3, rows)).astype(np.float32))
+    with torch.no_grad():
+        want = layer_dense(layer, x, dtype).float()
+        got = row_dense(x, layer.kernel, layer.bias, dtype, None)
+    assert got.dtype == dtype and got.shape == (3, 6)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
+        assert float((got.float() - want).abs().max()) <= ulp
 
 
 def test_dcn_smoke_two_ranks_matches_jax_two_processes():

@@ -112,29 +112,57 @@ def test_predict_rejects_empty_batch(sessions):
 
 
 def test_mesh_not_ported():
-    """``mesh=`` is ported: on the one-rank mesh the row-split first Dense
-    (all rows on the one rank) serves what the JAX session does;
-    ``sharding_rules`` without a mesh is ignored, as in the JAX session;
-    a row split of any other kernel is not ported and raises."""
+    """``mesh=`` takes any rules (the name dates from when a split of any
+    kernel but the first raised): on the one-rank mesh the port's session
+    under the first-layer rules, under rules that split every kernel by
+    rows, and under rules that split every leaf (the biases, which no
+    split Dense runs split, are gathered and listed) serves what the JAX
+    session serves under the same rules on a {data: 1, model: 2} mesh;
+    ``sharding_rules`` without a mesh is ignored, as in the JAX session."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from video_spike_tpu.parallel.mesh import make_mesh as jax_mesh
     from video_spike_torch.models.linear import first_layer_sharding_rules
     from video_spike_torch.parallel.mesh import Placement, make_mesh
 
     jm, params = _jax_linear()
     x = _rows(11, 3)
-    want = JSession(jm, params, bucket_sizes=BUCKETS).predict(x)
+    jmesh = jax_mesh(n_data=1, n_model=2, devices=jax.devices()[:2])
     mesh = make_mesh()
-    rules = lambda p, m: first_layer_sharding_rules(p, m, min_dim=N_FEAT)
-    for kw in ({"mesh": mesh, "sharding_rules": rules}, {"mesh": mesh},
-               {"sharding_rules": rules}):
-        got = InferenceSession(_port_linear(), flax_to_torch(params),
-                               bucket_sizes=BUCKETS, device="cpu",
-                               **kw).predict(x)
-        np.testing.assert_allclose(got, want, **TOL)
-    with pytest.raises(NotImplementedError, match="first kernel"):
-        InferenceSession(_port_linear(), flax_to_torch(params),
-                         device="cpu", mesh=mesh, sharding_rules=lambda p, m: {
-                             k: Placement(m, "model" if k.endswith("kernel")
-                                          else None) for k in p})
+
+    def split(kernels_only):
+        def port(p, m):
+            return {k: Placement(m, "model" if k.endswith("kernel")
+                                 or not kernels_only else None) for k in p}
+
+        def jax_rules(p, m):
+            return jax.tree_util.tree_map_with_path(
+                lambda path, leaf: NamedSharding(m, P("model") if (
+                    str(path[-1].key) == "kernel" or not kernels_only)
+                    else P()), p)
+        return port, jax_rules
+
+    first = lambda p, m: first_layer_sharding_rules(p, m, min_dim=N_FEAT)
+    cases = [({"mesh": mesh, "sharding_rules": first}, None, []),
+             ({"mesh": mesh}, None, []), ({"sharding_rules": first}, None,
+                                          None)]
+    for kernels_only in (True, False):
+        port, jax_rules = split(kernels_only)
+        biases = [] if kernels_only else sorted(
+            f"{m}.Dense_{i}.bias" for m, n in (("encoder", 2),
+                                                ("decoder", 1))
+            for i in range(n))
+        cases.append(({"mesh": mesh, "sharding_rules": port}, jax_rules,
+                      biases))
+    for kw, jax_rules, gathered in cases:
+        want = JSession(jm, params, bucket_sizes=BUCKETS, **(
+            {"mesh": jmesh, "sharding_rules": jax_rules} if jax_rules
+            else {})).predict(x)
+        ts = InferenceSession(_port_linear(), flax_to_torch(params),
+                              bucket_sizes=BUCKETS, device="cpu", **kw)
+        np.testing.assert_allclose(ts.predict(x), want, **TOL)
+        got = ts.stats.get("gathered_leaves")
+        assert (got if got is None else sorted(got)) == gathered, kw
 
 
 def test_cuda_without_card_raises():

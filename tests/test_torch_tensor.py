@@ -142,12 +142,12 @@ TP_LAYERS = r"""
 import json
 import numpy as np
 import torch
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import exit_rank, setup_runtime
 from video_spike_torch.models.vtt import (
-    VideoTemporalTransformer, split_over_model, vtt_sharding_rules)
+    VideoTemporalTransformer, vtt_sharding_rules)
 from video_spike_torch.parallel import multihost as mh
 from video_spike_torch.parallel.mesh import make_mesh
-from video_spike_torch.parallel.tensor import column_dense
+from video_spike_torch.parallel.tensor import column_dense, split_over_model
 
 assert setup_runtime("cpu")
 torch.set_num_threads(1)
@@ -207,6 +207,7 @@ out["vtt"] = {"y": rel(y2, y1), "split": names,
               "grads": max(rel(g2[n], g1[n]) for n in g1
                            if g1[n].abs().max() > 0)}
 print(f"pid={r} result={json.dumps(out)}", flush=True)
+exit_rank()
 """
 
 
@@ -419,7 +420,7 @@ SPLIT_SESSION = r"""
 import json, sys
 import numpy as np
 import torch
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import exit_rank, setup_runtime
 from video_spike_torch.models.vtt import (
     VideoTemporalTransformer, vtt_sharding_rules)
 from video_spike_torch.parallel import multihost as mh
@@ -440,6 +441,7 @@ shapes = {k: list(v.shape) for k, v in session.params.items()
           if k in ("session_heads", "Block_0.Dense_0.kernel")}
 print(f"pid={mh.process_index()} result="
       f"{json.dumps({'outs': outs, 'shapes': shapes})}", flush=True)
+exit_rank()
 """
 
 

@@ -483,7 +483,7 @@ def test_graft_rejects_mismatched_trees():
 def test_load_pretrained_file_kinds(tmp_path):
     """An HF state dict as .pt and as .npz fills the probe backbone with the
     converted weights (cast to the probe leaf's dtype); a directory raises
-    and names the route through convert.py."""
+    and names the converter script."""
     sd = _hf_state_dict(prefix="videomae.")
     want = thf.convert_hf_videomae(sd, num_layers=2, prefix="videomae.")
     torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
@@ -500,5 +500,5 @@ def test_load_pretrained_file_kinds(tmp_path):
             assert got.dtype == params["video_mae." + k].dtype, k
             assert torch.equal(got, torch.from_numpy(v).to(got.dtype)), k
         assert out["encoder_head.kernel"] is params["encoder_head.kernel"]
-    with pytest.raises(ValueError, match="convert.py"):
+    with pytest.raises(ValueError, match="scripts/convert_jax_checkpoint"):
         thf.load_pretrained_into_probe(params, str(tmp_path))

@@ -20,7 +20,7 @@ import argparse
 import numpy as np
 
 from video_spike_torch.core.device import resolve_device
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import run_rank, setup_runtime
 from video_spike_torch.data.dataset import SessionDataset, split_dataset
 from video_spike_torch.ops.flow import get_optic_flow
 from video_spike_torch.viz.embeddings import (float32_to_uint8,
@@ -57,4 +57,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    run_rank(main)

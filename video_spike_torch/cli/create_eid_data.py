@@ -29,7 +29,7 @@ import numpy as np
 from video_spike_torch.core.cli import get_args
 from video_spike_torch.core.config import config_from_kwargs, update_config
 from video_spike_torch.core.rng import set_seed
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import run_rank, setup_runtime
 from video_spike_torch.data.dataset import make_loader, split_dataset
 from video_spike_torch.data.rrr_data import SHORTNAME_TO_MOD, get_rrr_data
 
@@ -124,4 +124,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    run_rank(main)

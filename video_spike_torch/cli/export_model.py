@@ -22,7 +22,7 @@ import numpy as np
 
 from video_spike_torch.core.config import config_from_kwargs, update_config
 from video_spike_torch.core.logging import logging as make_logger
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import run_rank, setup_runtime
 
 
 def main(argv=None):
@@ -66,4 +66,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    run_rank(main)

@@ -35,7 +35,7 @@ from pathlib import Path
 import numpy as np
 
 from video_spike_torch.core.device import resolve_device
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import run_rank, setup_runtime
 from video_spike_torch.data.ibl import (
     active_neuron_mask,
     align_spike_behavior,
@@ -223,4 +223,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    run_rank(main)

@@ -35,7 +35,7 @@ from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
 from video_spike_torch.core.registry import NAME2MODEL
 from video_spike_torch.core.rng import set_seed
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import run_rank, setup_runtime
 from video_spike_torch.data.contrast import make_contrast_loader
 from video_spike_torch.train.contrast import make_contrast_trainer
 
@@ -154,4 +154,4 @@ def _parse(argv):
 
 
 if __name__ == "__main__":
-    main()
+    run_rank(main)

@@ -36,7 +36,7 @@ from video_spike_torch.core.config import config_from_kwargs, update_config
 from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
 from video_spike_torch.core.rng import set_seed
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import run_rank, setup_runtime
 from video_spike_torch.data.dataset import make_loader, split_dataset
 from video_spike_torch.models.videomae import (
     VideoMAEForPreTraining,
@@ -161,4 +161,4 @@ def _parse(argv):
 
 
 if __name__ == "__main__":
-    main()
+    run_rank(main)

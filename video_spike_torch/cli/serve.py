@@ -24,7 +24,7 @@ import numpy as np
 
 from video_spike_torch.core.config import config_from_kwargs, update_config
 from video_spike_torch.core.logging import logging as make_logger
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import run_rank, setup_runtime
 
 
 def make_app(argv=None):
@@ -74,8 +74,16 @@ def main(argv=None):
     from video_spike_torch.serve import serve_http
 
     args, _, batcher = make_app(argv)
-    serve_http(batcher, port=args.port, host=args.host)
+    server = serve_http(batcher, port=args.port, host=args.host,
+                        block=False)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:          # the socket and the batcher's thread, before exit
+        server.server_close()
+        batcher.close()
 
 
 if __name__ == "__main__":
-    main()
+    run_rank(main)

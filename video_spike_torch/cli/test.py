@@ -39,7 +39,7 @@ from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
 from video_spike_torch.core.registry import NAME2MODEL
 from video_spike_torch.core.rng import set_seed
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import run_rank, setup_runtime
 from video_spike_torch.data.contrast import make_contrast_loader
 from video_spike_torch.train.contrast import make_contrast_trainer
 from video_spike_torch.train.rrr_pipeline import train_rrr
@@ -158,4 +158,4 @@ def _save_plots(out_dir: Path, model: str, eid: str, train_emb: np.ndarray,
 
 
 if __name__ == "__main__":
-    main()
+    run_rank(main)

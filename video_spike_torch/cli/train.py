@@ -39,7 +39,7 @@ from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
 from video_spike_torch.core.registry import NAME2MODEL
 from video_spike_torch.core.rng import set_seed
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import run_rank, setup_runtime
 from video_spike_torch.data.dataset import (
     get_metadata_from_loader,
     make_loader,
@@ -136,4 +136,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    run_rank(main)

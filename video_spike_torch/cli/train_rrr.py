@@ -29,7 +29,7 @@ from video_spike_torch.core.cli import get_args
 from video_spike_torch.core.config import config_from_kwargs, update_config
 from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.rng import set_seed
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import run_rank, setup_runtime
 from video_spike_torch.data.rrr_data import EMBEDDING_MODS, SHORTNAME_TO_MOD
 from video_spike_torch.models.rrr import train_model_main
 from video_spike_torch.ops.signal import one_hot_per_trial, standardize
@@ -173,4 +173,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    run_rank(main)

@@ -30,7 +30,7 @@ from video_spike_torch.core.cli import get_args
 from video_spike_torch.core.config import config_from_kwargs, update_config
 from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.rng import set_seed
-from video_spike_torch.core.runtime import setup_runtime
+from video_spike_torch.core.runtime import run_rank, setup_runtime
 from video_spike_torch.data.dataset import make_loader, split_dataset
 from video_spike_torch.data.rrr_data import get_rrr_data
 from video_spike_torch.models.cebra import (get_cebra_embedding,
@@ -108,4 +108,4 @@ def main(argv=None, *, save_path=_DEFAULT) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    run_rank(main)

@@ -14,6 +14,24 @@ variables it does nothing, and every helper of ``parallel/`` is a no-op.
 - the card is ``LOCAL_RANK`` modulo the visible card count, set with
   ``torch.cuda.set_device`` before the group is initialised.
 
+A rank leaves in order. Left to the interpreter's exit, a gloo rank can
+abort after its work is done (``terminate called without an active
+exception``): a gloo worker thread (``ProcessGroupGloo::runLoop``) that
+drops the last reference to a tensor holding a Python object needs the GIL,
+and once finalization has begun Python ends such a thread with
+``pthread_exit``, whose unwinding through a ``noexcept`` frame terminates
+the process. So:
+
+- :func:`setup_runtime` registers an ``atexit`` hook that destroys the
+  process groups without a barrier (a rank that raised must not wait for
+  peers that will not come), while the interpreter still runs: the
+  counterpart of the shutdown JAX registers for its distributed runtime;
+- :func:`exit_rank` is how a rank's entry point ends: barrier, destroy the
+  groups, join background checkpoint writes, flush the output streams and
+  the logging handlers, then ``os._exit``, so no finalization runs at all;
+  :func:`run_rank` runs an entry point's ``main`` and leaves through it,
+  with code 1 and the traceback printed when ``main`` raised.
+
 The JAX package's persistent compilation cache has no counterpart: the
 port's CUDA kernels are cached by ``ops/cuda_lib.py`` and nothing else is
 compiled ahead of time.
@@ -21,7 +39,11 @@ compiled ahead of time.
 
 from __future__ import annotations
 
+import atexit
+import logging
 import os
+import sys
+import traceback
 
 import torch
 import torch.distributed as dist
@@ -49,7 +71,19 @@ def setup_runtime(device: str | torch.device = "cuda") -> bool:
         "nccl" if on_cuda else "gloo")
     dist.init_process_group(backend, init_method="env://", rank=rank,
                             world_size=world)
+    atexit.register(_release_groups)
     return True
+
+
+def _has_group() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _release_groups() -> None:
+    """Destroy every process group now, with no barrier; a no-op without
+    a group (the ``atexit`` hook of :func:`setup_runtime`)."""
+    if _has_group():
+        dist.destroy_process_group()
 
 
 def teardown_runtime() -> None:
@@ -57,6 +91,60 @@ def teardown_runtime() -> None:
     then the groups (the default one and every ``new_group``) are
     destroyed while all peers are still alive, not by the interpreter's
     teardown at exit. A no-op without a group."""
-    if dist.is_available() and dist.is_initialized():
+    if _has_group():
         dist.barrier()
         dist.destroy_process_group()
+
+
+def _flush() -> None:
+    for stream in (sys.stdout, sys.stderr):
+        try:
+            stream.flush()
+        except (AttributeError, OSError, ValueError):
+            pass
+    logging.shutdown()
+
+
+def exit_rank(code: int = 0) -> None:
+    """End this rank's process with `code`, without the interpreter's
+    teardown: after a clean run (`code` 0) every rank meets at a barrier
+    before the groups are destroyed; otherwise they are destroyed at once.
+    Background checkpoint writes are joined first (a failed one turns code
+    0 into 1), then stdout, stderr and the logging handlers are flushed and
+    the process ends with ``os._exit``. Without a process group it returns
+    and the interpreter exits as usual."""
+    if not _has_group():
+        return
+    try:
+        from video_spike_torch.train.checkpoint import wait_for_checkpoints
+
+        if not wait_for_checkpoints(raise_errors=False):
+            code = code or 1
+        if code == 0:
+            teardown_runtime()
+        else:
+            _release_groups()
+    except BaseException:          # noqa: BLE001  (reported, then exit)
+        traceback.print_exc()
+        code = code or 1
+    finally:
+        _flush()
+        os._exit(code)
+
+
+def run_rank(main, *args, **kwargs):
+    """Run an entry point's ``main(*args, **kwargs)``; under a process
+    group the rank then leaves through :func:`exit_rank`: code 0 once main
+    returned, 1 once it raised (its traceback printed first). Without a
+    group, and for ``SystemExit`` and ``KeyboardInterrupt`` (the ``atexit``
+    hook then releases the groups), main's result or exception passes
+    through."""
+    try:
+        out = main(*args, **kwargs)
+    except Exception:
+        if not _has_group():
+            raise
+        traceback.print_exc()
+        exit_rank(1)
+    exit_rank(0)
+    return out

@@ -127,9 +127,9 @@ def load_pretrained_into_probe(probe_params: Mapping[str, torch.Tensor],
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory (an orbax checkpoint of the JAX "
-            f"package?); the port reads .pt files: convert the flax tree "
-            f"with video_spike_torch/convert.py (flax_to_torch) on a host "
-            f"with JAX and save {{'params': ...}} with torch.save")
+            f"package?); the port reads .pt files: on a host with JAX run "
+            f"`python scripts/convert_jax_checkpoint.py {path}`, which "
+            f"writes {path.rstrip('/')}.pt beside it")
     if path.endswith(".npz"):
         sd = dict(np.load(path))
     else:

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from video_spike_torch.ops.fused_readout import dense, preprocess_flat
+from video_spike_torch.parallel.tensor import column_dense, row_dense
 
 # flax's variance_scaling "truncated_normal": stddev / this constant is the
 # untruncated std whose [-2, 2]-truncated draw has the target variance
@@ -42,7 +43,13 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
 
 class Dense(nn.Module):
     """``flax.linen.Dense`` with an (in, out) kernel; the compute dtype is
-    the caller's (``dense`` casts both operands)."""
+    the caller's (``dense`` casts both operands).
+    ``parallel/tensor.split_over_model`` gives a layer whose kernel is held
+    split over the ``model`` axis that axis's group and the kernel's split
+    dimension (0 rows, 1 columns)."""
+
+    model_group = None
+    split_dim = None
 
     def __init__(self, in_features: int, out_features: int,
                  device=None, dtype=torch.float32):
@@ -55,6 +62,17 @@ class Dense(nn.Module):
         lecun_normal_(self.kernel, self.kernel.shape[0], generator)
         with torch.no_grad():
             self.bias.zero_()
+
+
+def layer_dense(layer: Dense, x: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """``dense`` through a ``Dense`` layer's kernel and bias; a layer given
+    a ``model_group`` holds its kernel's row or column block and runs as a
+    row- or column-split Dense over that group (``parallel/tensor``)."""
+    if layer.model_group is None:
+        return dense(x, layer.kernel, layer.bias, dtype)
+    split = row_dense if layer.split_dim == 0 else column_dense
+    return split(x, layer.kernel, layer.bias, dtype, layer.model_group)
 
 
 class MLP(nn.Module):
@@ -77,7 +95,7 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_layers):
             d = self.layer(i)
-            x = dense(x, d.kernel, d.bias, self.compute_dtype)
+            x = layer_dense(d, x, self.compute_dtype)
             if i < self.n_layers - 1:
                 x = torch.relu(x)
         return x

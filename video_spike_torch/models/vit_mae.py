@@ -56,10 +56,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from video_spike_torch.models.linear import Dense, lecun_normal_
+from video_spike_torch.models.linear import Dense, layer_dense, lecun_normal_
 from video_spike_torch.ops.attention import attention_bshd
 from video_spike_torch.ops.fused_readout import dense
-from video_spike_torch.parallel.tensor import column_dense
 
 
 # ---------------------------------------------------------------------------
@@ -142,17 +141,6 @@ class LayerNorm(nn.Module):
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.scale
         return ((xf - mean) * mul + self.bias).to(self.dtype)
-
-
-def layer_dense(layer: nn.Module, x: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
-    """``dense`` through a ``Dense`` layer's kernel and bias; a layer given
-    a ``model_group`` (``models/vtt.split_over_model``) holds its kernel's
-    column block and runs as a column-split Dense over that group."""
-    group = getattr(layer, "model_group", None)
-    if group is None:
-        return dense(x, layer.kernel, layer.bias, dtype)
-    return column_dense(x, layer.kernel, layer.bias, dtype, group)
 
 
 class SelfAttention(nn.Module):

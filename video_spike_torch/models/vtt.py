@@ -28,10 +28,11 @@ do not).
 
 Tensor sharding over a mesh's ``model`` axis: :func:`vtt_sharding_rules`
 is the port of the production rules (``__graft_entry__._vtt_sharding_rules``
-in the JAX package) on the port's flat names, and :func:`split_over_model`
-makes the model run what they split: each column-split kernel as a
-column-split Dense (``parallel/tensor``), and the session heads on this
-rank's block of neurons, gathered before the output leaves the model.
+in the JAX package) on the port's flat names, and
+``parallel/tensor.split_over_model`` makes the model run what a rule set
+splits: each split Dense kernel as a row- or column-split Dense, and the
+session heads (``split_heads``) on this rank's block of neurons, gathered
+before the output leaves the model.
 """
 
 from __future__ import annotations
@@ -97,47 +98,6 @@ def vtt_sharding_rules(params, mesh) -> dict:
     return out
 
 
-def split_over_model(model: nn.Module, placements) -> tuple:
-    """Make `model` (a ``VideoTemporalTransformer`` holding, or about to be
-    given, the blocks of its split leaves) run the split that `placements`
-    fix: each ``Dense`` whose 2-D kernel splits its columns gets the model
-    group (its bias must be replicated), and the session heads and biases,
-    split on their last axis together, make the forward compute this
-    rank's neurons and gather them. Returns the split leaves' names.
-    Raises ``NotImplementedError`` for a split the forward does not run."""
-    modules = dict(model.named_modules())
-    split = tuple(k for k, p in placements.items() if p.axis is not None)
-    heads = {k for k in split if k in HEAD_LEAVES}
-    if heads and heads != set(HEAD_LEAVES):
-        raise NotImplementedError(f"the session heads and biases split "
-                                  f"together, not {sorted(heads)} alone")
-    for k in split:
-        p = placements[k]
-        if p.axis != "model":
-            raise NotImplementedError(f"{k}: split over {p.axis!r}; the VTT "
-                                      f"splits over the model axis only")
-        if k in HEAD_LEAVES:
-            if p.dim % p.ndim != p.ndim - 1:
-                raise NotImplementedError(f"{k}: heads split on the neuron "
-                                          f"axis only, not dim {p.dim}")
-            continue
-        owner, _, leaf = k.rpartition(".")
-        bias = f"{owner}.bias"
-        if (leaf != "kernel" or p.ndim != 2 or p.dim % 2 != 1
-                or owner not in modules or bias not in placements
-                or placements[bias].axis is not None):
-            raise NotImplementedError(
-                f"{k}: the VTT runs column splits of 2-D Dense kernels with "
-                f"a replicated bias and its session heads only")
-    groups = {placements[k].mesh.group("model") for k in split}
-    group = groups.pop() if groups else None
-    for k in split:
-        if k not in HEAD_LEAVES:
-            modules[k.rpartition(".")[0]].model_group = group
-    model.model_group = group if heads else None
-    return split
-
-
 class FrameEncoder(nn.Module):
     """Shared per-frame ViT: patchify -> spatial blocks -> (N, D) f32."""
 
@@ -185,6 +145,11 @@ class FrameEncoder(nn.Module):
 
 class VideoTemporalTransformer(nn.Module):
     """Video (B, T, 1, H, W) -> per-session log-rates (B, T_bins, N_max)."""
+
+    # leaves run split on their last (neuron) axis together, over
+    # ``model_group`` (``parallel/tensor.split_over_model``)
+    split_heads = HEAD_LEAVES
+    model_group = None
 
     def __init__(self, n_sessions: int, max_neurons: int,
                  t_frames: int = 120, t_bins: int = 100,
@@ -277,7 +242,7 @@ class VideoTemporalTransformer(nn.Module):
         h = torch.einsum("btd,tz->bzd", h, self.time_resample)
         Wb = self.session_heads[session_ids]              # (B, D, N_max)
         bb = self.session_bias[session_ids]               # (B, N_max)
-        group = getattr(self, "model_group", None)
+        group = self.model_group
         if group is None:
             return torch.bmm(h.float(), Wb) + bb[:, None, :]
         # this rank's neuron block (split heads), gathered in model order

@@ -65,4 +65,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    from video_spike_torch.core.runtime import run_rank
+
+    run_rank(main)

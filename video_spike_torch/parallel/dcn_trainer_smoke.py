@@ -70,7 +70,7 @@ def _load_init(trainer) -> None:
 def main() -> None:
     import torch
 
-    from video_spike_torch.core.runtime import setup_runtime, teardown_runtime
+    from video_spike_torch.core.runtime import setup_runtime
     from video_spike_torch.parallel import multihost as mh
 
     torch.set_num_threads(1)
@@ -91,7 +91,6 @@ def main() -> None:
     else:
         out = _linear(os.environ["DCN_FIXTURE_DIR"], log_dir, eid, device)
     say(f"pid={pid} result={json.dumps(out)}")
-    teardown_runtime()
 
 
 def _linear(data_dir: str, log_dir: str, eid: str, device) -> dict:
@@ -342,4 +341,6 @@ def _ssl_resume(h5_path: str, log_dir: str, eid: str, device) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    from video_spike_torch.core.runtime import run_rank
+
+    run_rank(main)

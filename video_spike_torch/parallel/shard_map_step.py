@@ -68,7 +68,7 @@ def make_tensor_train_step(loss_fn: Callable, tx, mesh):
     ``loss_fn(params, *batch)`` -> this rank's share of the global loss
     (its data block's rows, divided by the global count) through a model
     whose split layers run over the ``model`` group
-    (``models/vtt.split_over_model``). ``params`` holds each rank's blocks
+    (``parallel/tensor.split_over_model``). ``params`` holds each rank's blocks
     of the split leaves and the whole replicated ones; ``tx`` updates them
     as they are, so its state is split like its leaves.
 

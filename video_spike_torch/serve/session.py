@@ -10,19 +10,22 @@ time (the JAX package compiles one executable per bucket). ``warmup()``
 runs every bucket once at startup.
 
 With ``mesh=`` (``parallel.mesh.make_mesh`` over a process group) and
-``sharding_rules=`` (e.g. ``models.linear.first_layer_sharding_rules``)
-every rank holds its row block of the Linear model's first Dense kernel
-(983,040 of its 1,966,080 rows at model = 2) and the rest replicated; a
-request runs on every rank with the same rows (a collective: every rank
-calls ``predict`` with the same batch), each rank computes
-``x[:, rows] @ W_rows`` and the partial products are all-reduced with SUM
-over the ``model`` axis before the bias. With
-``models.vtt.vtt_sharding_rules`` the VTT is held split as it trains under
-the production rules: its wide kernels by columns and its session heads
-on the neuron axis, each split layer run as a column-split Dense and the
-heads' neuron blocks gathered (``models/vtt.split_over_model``); every
-rank again calls ``predict`` with the same batch. Not in this port yet
-(ROADMAP.md): a captured CUDA graph per bucket.
+``sharding_rules=`` (a placement per leaf, e.g.
+``models.linear.first_layer_sharding_rules`` or
+``models.vtt.vtt_sharding_rules``) every rank holds its block of each
+split leaf, as the JAX session ``device_put``s the params under any rules,
+and a request runs on every rank with the same rows (a collective: every
+rank calls ``predict`` with the same batch; the batch is replicated, as in
+the JAX session). The forward runs the splits
+(``parallel/tensor.split_over_model``): a Dense kernel split by rows as
+this rank's partial product, summed in f32 over the ``model`` axis before
+the bias (the Linear first kernel: 983,040 of its 1,966,080 rows at
+model = 2); one split by columns as its block of output columns, gathered;
+the VTT's session heads on this rank's neurons, gathered. Any other split
+leaf (a LayerNorm scale, a bias under a replicated kernel, a split over
+``data``) is all-gathered to its whole shape once, at construction, and
+runs replicated; ``stats["gathered_leaves"]`` names those. Not in this
+port yet (ROADMAP.md): a captured CUDA graph per bucket.
 """
 
 from __future__ import annotations
@@ -34,22 +37,9 @@ import numpy as np
 import torch
 
 from video_spike_torch.core.device import resolve_device
-from video_spike_torch.models.vtt import (
-    VideoTemporalTransformer,
-    split_over_model,
-)
-from video_spike_torch.ops.fused_readout import (
-    FIRST_BIAS,
-    FIRST_KERNEL,
-    preprocess_flat,
-    tail_apply,
-)
 from video_spike_torch.parallel import multihost as mh
 from video_spike_torch.parallel.mesh import replicated
-
-
-# rows of the row-split first kernel upcast to f32 at once
-_ROW_CHUNK = 1 << 16
+from video_spike_torch.parallel.tensor import split_over_model
 
 
 def prepare_for_inference(model: torch.nn.Module,
@@ -107,8 +97,8 @@ def _fill_dims(model_config, params: Mapping[str, torch.Tensor]):
 
 class InferenceSession:
     """Bucket-batched, eager ``model(x[, session_ids])`` over fixed params
-    on one device, or with the Linear first kernel's rows split over the
-    ranks of a mesh's ``model`` axis.
+    on one device, or split over the ranks of a mesh's ``model`` axis by
+    any placement per leaf.
 
     ``needs_session_ids`` covers models whose forward takes per-sample
     session ids besides the data batch (the VTT flagship); ids a request
@@ -120,42 +110,27 @@ class InferenceSession:
                  mesh=None, sharding_rules=None):
         self.device = resolve_device(device)
         self.mesh = mesh
-        self._sharded = ()
+        self.stats = {"requests": 0, "padded_rows": 0, "compiles": 0}
         rules = None
         if mesh is not None:
             rules = (sharding_rules(params, mesh) if sharding_rules
                      else {k: replicated(mesh) for k in params})
             params = mh.put_tree(
                 {k: v.to(self.device) for k, v in params.items()}, rules)
-            self._sharded = self._split(model, rules)
+            _, whole = split_over_model(model, rules)
+            # the leaves the forward cannot run split: whole on every rank
+            params.update(mh.gather_tree({k: params[k] for k in whole},
+                                         rules))
+            rules = {**rules, **{k: replicated(mesh) for k in whole}}
+            self.stats["gathered_leaves"] = list(whole)
         self.model = prepare_for_inference(model, params, self.device, rules)
         self.buckets = sorted(set(int(b) for b in bucket_sizes))
         self.needs_session_ids = needs_session_ids
         self._seen: set = set()
-        self.stats = {"requests": 0, "padded_rows": 0, "compiles": 0}
 
     @property
     def params(self) -> dict:
         return {k: p.detach() for k, p in self.model.named_parameters()}
-
-    @staticmethod
-    def _split(model, rules) -> tuple:
-        """The split leaves' names, with `model` set up to run them: the
-        VTT's column-split kernels and session heads
-        (``models/vtt.split_over_model``), or the Linear first kernel's
-        row split (run by :meth:`_forward`); anything else raises."""
-        split = tuple(k for k, r in rules.items() if r.axis is not None)
-        if not split:
-            return ()
-        if isinstance(model, VideoTemporalTransformer):
-            return split_over_model(model, rules)
-        if set(split) != {FIRST_KERNEL} or rules[FIRST_KERNEL].axis != "model" \
-                or rules[FIRST_KERNEL].dim != 0:
-            raise NotImplementedError(
-                f"the Linear model's split serving covers the rows of its "
-                f"first kernel only, not {sorted(set(split) - {FIRST_KERNEL})}"
-                f" or another split of the first kernel")
-        return split
 
     # ------------------------------------------------------------------
     @classmethod
@@ -221,33 +196,10 @@ class InferenceSession:
                 sids = np.concatenate([sids, np.repeat(sids[-1:], pad)])
             args.append(torch.from_numpy(sids).to(self.device))
         with torch.inference_mode():
-            out = self._forward(*args)[:n].float().cpu().numpy()
+            out = self.model(*args)[:n].float().cpu().numpy()
         if bucket not in self._seen:
             self._seen.add(bucket)
             self.stats["compiles"] += 1
         self.stats["requests"] += 1
         self.stats["padded_rows"] += pad
         return out
-
-    def _forward(self, *args) -> torch.Tensor:
-        """The model's forward, or with a row-split first kernel: this
-        rank's partial product of the first Dense, summed over the
-        ``model`` axis, then the bias and the rest of the model."""
-        if FIRST_KERNEL not in self._sharded:
-            return self.model(*args)
-        p, model = self.params, self.model
-        w = p[FIRST_KERNEL]
-        rows, j = w.shape[0], self.mesh.coords["model"]
-        cd = model.compute_dtype
-        flat = preprocess_flat(model, args[0])[:, j * rows:(j + 1) * rows]
-        # the partial product of the compute-dtype operands, summed in f32
-        # and rounded to the compute dtype once, after the all-reduce, as
-        # the one-rank GEMM rounds its f32 accumulator once (bf16 partials
-        # rounded before the sum part from it by more than a bf16 ulp)
-        z = torch.zeros((flat.shape[0], w.shape[1]), dtype=torch.float32,
-                        device=w.device)
-        for r0 in range(0, rows, _ROW_CHUNK):
-            r1 = min(r0 + _ROW_CHUNK, rows)
-            z += flat[:, r0:r1].to(cd).float() @ w[r0:r1].to(cd).float()
-        z = mh.all_sum(z, self.mesh.group("model")).to(cd)
-        return tail_apply(model, p, z + p[FIRST_BIAS].to(cd))

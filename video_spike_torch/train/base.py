@@ -959,6 +959,10 @@ class BaseTrainer:
         mh.barrier()
         if not checkpoint_exists(self.log_dir, f"model_{name}"):
             return False
+        # the JAX trainer draws a probe batch here, which moves a shuffled
+        # loader on by an epoch: drawing it too keeps a resumed run on the
+        # JAX run's batch order
+        next(iter(self.train_loader))
         self._init_if_needed()
         restored = load_checkpoint(self.log_dir, f"model_{name}", self.device)
         self._set_params(restored["params"])

@@ -98,24 +98,25 @@ def make_vtt_tensor_step(model, params: Dict[str, torch.Tensor], mesh, tx):
     rules (the JAX package's ``DCN_MODE=tensor`` / ``_dryrun_body`` step):
     `params` (full values, the same on every rank) are placed by
     ``models/vtt.vtt_sharding_rules``, `model` runs their split
-    (``split_over_model``), and ``step(params, opt_state, video, ap, sids,
-    nmask)`` takes this rank's data block of the batch, with
+    (``parallel/tensor.split_over_model``), and ``step(params, opt_state,
+    video, ap, sids, nmask)`` takes this rank's data block of the batch, with
     :func:`masked_poisson_nll` over the global batch, value and grad, and
     ``tx`` on each rank's blocks (``parallel/shard_map_step.
     make_tensor_train_step``). Returns ``(step, params, opt_state,
     placements)``; ``multihost.gather_tree(params, placements)`` gives the
     full values back."""
-    from video_spike_torch.models.vtt import (
-        split_over_model,
-        vtt_sharding_rules,
-    )
+    from video_spike_torch.models.vtt import vtt_sharding_rules
     from video_spike_torch.parallel.shard_map_step import (
         make_tensor_train_step,
     )
+    from video_spike_torch.parallel.tensor import split_over_model
 
     rules = vtt_sharding_rules(params, mesh)
     params = mh.put_tree(params, rules)
-    split_over_model(model, rules)
+    _, whole = split_over_model(model, rules)
+    if whole:
+        raise ValueError(f"the tensor-sharded step runs every split leaf "
+                         f"split; these it cannot: {list(whole)}")
     group = mesh.group("data")
 
     def loss_fn(p, video, ap, sids, nmask):
@@ -547,6 +548,10 @@ class MultiSessionTrainer:
         mh.barrier()
         if not checkpoint_exists(self.log_dir, f"model_{name}"):
             return False
+        # the JAX trainer draws a probe batch of the first session here,
+        # which moves its shuffled loader on by an epoch: drawing it too
+        # keeps a resumed run on the JAX run's batch order
+        next(iter(self.train_loaders[self.eids[0]]))
         self._init_if_needed()
         restored = load_checkpoint(self.log_dir, f"model_{name}", self.device)
         self._set_params(restored["params"])
