@@ -10,9 +10,11 @@ Phases, one JSON line each on stdout:
    power limit as ``nvidia-smi`` reports them;
 2. kernel: each kernel against its plain PyTorch version on the card —
    bitwise on exact-sum inputs (including a flat index that wraps past
-   2^32), within tolerance on random inputs — and timed with CUDA events
-   beside its bound, at the Linear path's shape and at the probe head's
-   (M = 1,204,224, N = 256, B = 8);
+   2^32, a ragged M, B = 1, N = 100 and B = 256), within tolerance on
+   random inputs — and timed with CUDA events beside its bound, at the
+   Linear path's shape, at the probe head's (M = 1,204,224, N = 256, B =
+   8) and at the gathered batch of 4 data-parallel ranks (B = 64); beside
+   them the ``copy_ms`` yardstick (a bf16 (M, N) ``Tensor.copy_``);
 3. main_path: ``python -m video_spike_torch.cli.train`` (called in-process)
    trains the full-width Linear model on a synthetic 128x128 session in
    the production configuration (bf16 SR store, lean adafactor, fused
@@ -46,7 +48,9 @@ Phases, one JSON line each on stdout:
     (b) NCCL at world 1 through the same CLI: losses and W equal to the
     non-distributed run's; (c) the Linear ``model_best`` served with the
     first kernel's rows split over 2 gloo ranks against the one-rank
-    session;
+    session; (d) 4 gloo ranks at local batch 16 on the 160-trial fixture,
+    one epoch: every fused update on the gathered 64 rows, W checksums
+    equal, one step against the one-process step on the same 64 rows;
 3e. optim_card_vs_cpu: every new optimizer transform on the Linear model's
     non-kernel leaves (the 11,161,600-element decoder head among them), 3
     updates on the card against the CPU within stated bounds, and one
@@ -144,10 +148,10 @@ Phases, one JSON line each on stdout:
     (field and features, each within its bound), timed with CUDA events
     and profiled (launches and device ms a trial);
 21. a ``{"kernels": [...]}`` line (the fused readout runs on the Linear,
-    lean Linear, streamed Linear, data-parallel Linear, model-axis Linear
-    and probe paths; the accumulation, VTT, tensor-sharded VTT, RRR, SSL,
-    pretraining, serving, split serving, export, CEBRA and ETL paths must
-    launch it 0 times);
+    lean Linear, streamed Linear, data-parallel Linear (2 and 4 ranks),
+    model-axis Linear and probe paths; the accumulation, VTT,
+    tensor-sharded VTT, RRR, SSL, pretraining, serving, split serving,
+    export, CEBRA and ETL paths must launch it 0 times);
 22. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure is an uncaught exception and a non-zero exit. Every rank of a
@@ -185,6 +189,8 @@ BATCH = 16
 N_TRIALS = 40
 KERNEL_M, KERNEL_N = T_FRAMES * HEIGHT * WIDTH, 256
 WRAP_M = (1 << 24) + 37      # row*N+col passes 2^32 at N=256
+DP4_WORLD = 4                # data-parallel ranks whose gathered batch the
+                             # kernel takes at 4 x BATCH rows
 SEEDS = (0, 7, (1 << 32) - 1)
 REPS = 3                     # timing windows per measurement
 
@@ -404,29 +410,29 @@ def _sr_compare(got, ref, xa, dzc) -> dict:
             "n_outside_tolerance": n_outside, "max_abs_err": max_abs}
 
 
-def _kernel_at(m: int, b: int, exact_ms, gen) -> dict:
+def _kernel_at(m: int, b: int, exact_cases, gen) -> dict:
     """The kernel against its plain version at (M, N=256, B): bitwise on
-    exact-sum inputs at each M of ``exact_ms`` for every seed, >= 99.9%
-    bitwise and within tolerance on random inputs at M, then timed at M
-    (W far above L2) beside its bound; the median of REPS windows."""
+    exact-sum inputs at each (M, B, N) of ``exact_cases`` for every seed,
+    >= 99.9% bitwise and within tolerance on random inputs at M, then timed
+    at M (W far above L2) beside its bound; the median of REPS windows."""
     import torch
 
     from video_spike_torch.ops import fused_readout as fr
 
     dev, n = torch.device("cuda"), KERNEL_N
 
-    def exact_factors(rows):
+    def exact_factors(rows, bb, nn):
         # small integers times powers of two: every f32 B-term sum is exact
         # in any order, at ~2^-10 of W's scale so SR still rounds
-        xa = torch.randint(-7, 8, (b, rows), generator=gen, device=dev)
-        dzc = torch.randint(-7, 8, (b, n), generator=gen, device=dev)
+        xa = torch.randint(-7, 8, (bb, rows), generator=gen, device=dev)
+        dzc = torch.randint(-7, 8, (bb, nn), generator=gen, device=dev)
         return xa.float() * 2.0**-8, dzc.float() * 2.0**-12
 
     bitwise = []
-    for rows in exact_ms:
-        w0 = torch.randn(rows, n, generator=gen, device=dev,
+    for rows, bb, nn in exact_cases:
+        w0 = torch.randn(rows, nn, generator=gen, device=dev,
                          dtype=torch.bfloat16)
-        xa, dzc = exact_factors(rows)
+        xa, dzc = exact_factors(rows, bb, nn)
         for seed in SEEDS:
             ref = fr._apply_scaled_outer_plain(w0, xa, dzc, seed)
             w = w0.clone()
@@ -434,11 +440,12 @@ def _kernel_at(m: int, b: int, exact_ms, gen) -> dict:
             torch.cuda.synchronize()
             equal = bool(torch.equal(w.view(torch.int16),
                                      ref.view(torch.int16)))
-            bitwise.append({"m": rows, "b": b, "seed": seed,
+            bitwise.append({"m": rows, "b": bb, "n": nn, "seed": seed,
                             "bitwise": equal})
             if not equal:
                 raise AssertionError(f"kernel != plain on exact sums: "
-                                     f"M={rows}, B={b}, seed={seed}")
+                                     f"M={rows}, B={bb}, N={nn}, "
+                                     f"seed={seed}")
             del ref, w
         del w0, xa, dzc
         torch.cuda.empty_cache()
@@ -463,20 +470,46 @@ def _kernel_at(m: int, b: int, exact_ms, gen) -> dict:
     flops = 2 * b * m * n
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = flops / F32_FLOP_PER_S * 1e3
+    plan = fr._launch_plan(m, n, b)._asdict()
     del w, w0, xa, dzc
     torch.cuda.empty_cache()
+    ms = statistics.median(windows)
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
     return {"shape": [m, n, b], "exact_sum_cases": bitwise,
-            "random_inputs": cmp, "ms": statistics.median(windows),
-            "ms_windows": windows, "plain_ms": plain_ms,
-            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "random_inputs": cmp, "ms": ms, "ms_windows": windows,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
                          else "operations"),
-            "bound_bytes": nbytes, "bound_flops": flops}
+            "share_of_bound": bound_ms / ms,
+            "bound_bytes": nbytes, "bound_flops": flops, "plan": plan}
+
+
+def _copy_ms() -> dict:
+    """A yardstick, not the bound and not a library call of the same
+    function: ``Tensor.copy_`` between two (M, N) bf16 buffers of the
+    Linear shape (2.013 GB moved), the device-memory rate this card reaches
+    with a plain stream."""
+    import torch
+
+    src = torch.empty(KERNEL_M, KERNEL_N, dtype=torch.bfloat16,
+                      device="cuda")
+    dst = torch.empty_like(src)
+    windows = [cuda_ms(lambda: dst.copy_(src), 20, 3) for _ in range(REPS)]
+    nbytes = 2 * src.numel() * 2
+    ms = statistics.median(windows)
+    del src, dst
+    torch.cuda.empty_cache()
+    return {"copy_ms": ms, "copy_ms_windows": windows, "bytes": nbytes,
+            "tb_per_s": nbytes / ms / 1e9,
+            "share_of_hbm_rate": nbytes / ms / 1e9 / (HBM_BYTES_PER_S / 1e12)}
 
 
 def phase_kernel() -> dict:
-    """The kernel at the Linear path's shape (exact sums also at a ragged M
-    and at an M whose flat index wraps 2^32) and at the probe head's."""
+    """The kernel at the Linear path's shape (exact sums also at a ragged M,
+    at an M whose flat index wraps 2^32, at B = 1 and at N = 100), at the
+    probe head's, and at the gathered batch of 4 data-parallel ranks (B =
+    64; exact sums also at B = 256, whose dzc is walked in chunks); and the
+    device-memory yardstick ``copy_ms``."""
     import torch
 
     from video_spike_torch.ops import fused_readout as fr
@@ -484,24 +517,40 @@ def phase_kernel() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    linear = _kernel_at(KERNEL_M, BATCH, (4133, WRAP_M), gen)
-    probe = _kernel_at(PROBE_M, PROBE_BATCH, (PROBE_M,), gen)
+    linear = _kernel_at(KERNEL_M, BATCH, [
+        (KERNEL_M, BATCH, KERNEL_N), (4133, BATCH, KERNEL_N),
+        (WRAP_M, BATCH, KERNEL_N), (4133, 1, KERNEL_N),
+        (1000, BATCH, 100)], gen)
+    probe = _kernel_at(PROBE_M, PROBE_BATCH,
+                       [(PROBE_M, PROBE_BATCH, KERNEL_N)], gen)
+    wide = _kernel_at(KERNEL_M, DP4_WORLD * BATCH, [
+        (KERNEL_M, DP4_WORLD * BATCH, KERNEL_N), (2000, 256, KERNEL_N)],
+        gen)
+    copy = _copy_ms()
+    keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "share_of_bound")
     result = {
         "name": "apply_scaled_outer",
         "route": "cuda",
         "source": "video_spike_torch/csrc/fused_readout.cu",
         "replaces": "video_spike_tpu/ops/fused_readout.py:161",
-        "max_abs_err": linear["random_inputs"]["max_abs_err"],
+        "max_abs_err": max(r["random_inputs"]["max_abs_err"]
+                           for r in (linear, probe, wide)),
         "ms": linear["ms"],
         "plain_ms": linear["plain_ms"],
         "bound_ms": linear["bound_ms"],
         "bound_by": linear["bound_by"],
         "library_ms": None,
-        "probe": {k: probe[k] for k in ("shape", "ms", "plain_ms",
-                                        "bound_ms", "bound_by")},
+        "share_of_bound": linear["share_of_bound"],
+        "probe": {k: probe[k] for k in keys},
+        "b64": {k: wide[k] for k in keys},
+        "copy_ms_yardstick": copy["copy_ms"],
+        "launches_in_checks": fr.apply_scaled_outer.launches,
     }
     result["probe"]["max_abs_err"] = probe["random_inputs"]["max_abs_err"]
+    result["b64"]["max_abs_err"] = wide["random_inputs"]["max_abs_err"]
     emit("kernel", kernel="apply_scaled_outer", linear=linear, probe=probe,
+         b64=wide, copy_yardstick=copy,
          launches_in_checks=fr.apply_scaled_outer.launches)
     return result
 
@@ -1174,6 +1223,51 @@ def staged_ms(trainer, windows, epochs, barrier=None):
     return ms
 """
 
+# one data-parallel step (this rank's rows, the factors gathered) against the
+# one-rank fused step on all the rows, from the same params p0, in the same
+# process: needs trainer, p0, g, rows, b, rank and cfg["neurons"]
+_CHILD_SAME_ROWS = r"""
+x = torch.randint(0, 256, (rows, p0[fr.FIRST_KERNEL].shape[0]), generator=g,
+                  device="cuda", dtype=torch.uint8)
+ap = torch.poisson(torch.full((rows, 100, cfg["neurons"]), 0.5,
+                              device="cuda"), generator=g)
+one_step = fr.make_fused_linear_step(trainer.model, trainer.tx,
+                                     trainer.schedule, trainer.criterion,
+                                     trainer._apply_updates)
+
+
+def start():
+    p = {k: v.clone() for k, v in p0.items()}
+    return p, fr.init_fused_opt_state(p, trainer.tx)
+
+
+p_dp, _, loss_dp = trainer._step_fn(*start(), x[rank * b:(rank + 1) * b],
+                                    ap[rank * b:(rank + 1) * b], rows, 0)
+p_1, _, loss_1 = one_step(*start(), x, ap, rows, 0)
+w_dp, w_1 = p_dp[fr.FIRST_KERNEL], p_1[fr.FIRST_KERNEL]
+w_0 = p0[fr.FIRST_KERNEL]
+# compared a block of rows at a time: f32 copies of the whole W are 2 GB
+# each, and several ranks share the card
+n_equal = n_outside = 0
+max_diff = max_update = 0.0
+for r0 in range(0, w_dp.shape[0], 1 << 18):
+    blk = slice(r0, r0 + (1 << 18))
+    a32, b32 = w_dp[blk].float(), w_1[blk].float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        torch.maximum(a32.abs(), b32.abs()).clamp_min(1e-38))) - 7)
+    n_equal += int((w_dp[blk].view(torch.int16)
+                    == w_1[blk].view(torch.int16)).sum())
+    n_outside += int(((a32 - b32).abs() > ulp).sum())
+    max_diff = max(max_diff, float((a32 - b32).abs().max()))
+    max_update = max(max_update, float((b32 - w_0[blk].float()).abs().max()))
+    del a32, b32, ulp
+same_rows = {
+    "loss_dp": float(loss_dp), "loss_one_rank": float(loss_1),
+    "w_frac_bitwise": n_equal / w_dp.numel(), "w_outside_1ulp": n_outside,
+    "w_max_abs_diff_over_max_update": max_diff / max_update,
+    "w_checksums": mh.replica_checksums({"w": w_dp}, dist.group.WORLD)}
+"""
+
 # every rank: cli.train 2 epochs, --resume to 3, staged ms/step, then one
 # 2-rank step (this rank's rows, the factors gathered) against the one-rank
 # fused step on all 16 rows, from the same params, in the same process
@@ -1216,33 +1310,7 @@ for i in range(6):
     if i:
         gather_ms.append((time.perf_counter() - t0) * 1e3)
 del flat
-x = torch.randint(0, 256, (rows, p0[fr.FIRST_KERNEL].shape[0]), generator=g,
-                  device="cuda", dtype=torch.uint8)
-ap = torch.poisson(torch.full((rows, 100, cfg["neurons"]), 0.5,
-                              device="cuda"), generator=g)
-one_step = fr.make_fused_linear_step(trainer.model, trainer.tx,
-                                     trainer.schedule, trainer.criterion,
-                                     trainer._apply_updates)
-
-
-def start():
-    p = {k: v.clone() for k, v in p0.items()}
-    return p, fr.init_fused_opt_state(p, trainer.tx)
-
-
-p_dp, _, loss_dp = trainer._step_fn(*start(), x[rank * b:(rank + 1) * b],
-                                    ap[rank * b:(rank + 1) * b], rows, 0)
-p_1, _, loss_1 = one_step(*start(), x, ap, rows, 0)
-w_dp, w_1 = p_dp[fr.FIRST_KERNEL], p_1[fr.FIRST_KERNEL]
-a32, b32 = w_dp.float(), w_1.float()
-ulp = torch.exp2(torch.floor(torch.log2(
-    torch.maximum(a32.abs(), b32.abs()).clamp_min(1e-38))) - 7)
-same_rows = {
-    "loss_dp": float(loss_dp), "loss_one_rank": float(loss_1),
-    "w_frac_bitwise": float((w_dp.view(torch.int16)
-                             == w_1.view(torch.int16)).float().mean()),
-    "w_outside_1ulp": int(((a32 - b32).abs() > ulp).sum()),
-    "w_checksums": mh.replica_checksums({"w": w_dp}, dist.group.WORLD)}
+""" + _CHILD_SAME_ROWS + r"""
 out = {"rank": rank, "world": world, "backend": dist.get_backend(),
        "train_losses": res["train_losses"], "steps": res["global_step"],
        "launches": launches, "replica_checksums": res["replica_checksums"],
@@ -1253,6 +1321,69 @@ out = {"rank": rank, "world": world, "backend": dist.get_backend(),
        "test": res["test_res"], "log_dir": res["log_dir"],
        "ms_per_step_windows": ms, "gather_ms": gather_ms,
        "same_rows": same_rows}
+with open(f"{cfg['out']}{rank}.json", "w") as f:
+    json.dump(out, f)
+exit_rank()
+"""
+
+# every rank of DP4_WORLD: cli.train one epoch on its shard of the 160-trial
+# fixture at BATCH rows (2 steps, each fused update on the gathered
+# DP4_WORLD * BATCH rows), the kernel's B at each launch, then the same-rows
+# step on all DP4_WORLD * BATCH rows
+DP4_CHILD = r"""
+import gc, json, sys
+import torch
+import torch.distributed as dist
+from video_spike_torch.cli import train as train_cli
+from video_spike_torch.core.cli import get_args
+from video_spike_torch.core.runtime import exit_rank
+from video_spike_torch.ops import fused_readout as fr
+from video_spike_torch.parallel import multihost as mh
+
+cfg = json.loads(sys.argv[1])
+batches, _launch = [], fr._launch_cuda
+
+
+def recording_launch(w, xa, dzc, seed):
+    batches.append(int(xa.shape[0]))
+    return _launch(w, xa, dzc, seed)
+
+
+fr._launch_cuda = recording_launch
+fr.apply_scaled_outer.launches = 0
+res = train_cli.main(cfg["argv"] + ["--num_epochs", "1"])
+launches, kernel_batches = fr.apply_scaled_outer.launches, list(batches)
+gc.collect()
+torch.cuda.empty_cache()
+rank, world = mh.process_index(), mh.process_count()
+trainer = train_cli.build_trainer(get_args(cfg["argv"] + ["--num_epochs",
+                                                          "1"]))
+trainer._init_if_needed()
+p0 = {k: v.clone() for k, v in trainer.params.items()}
+g = torch.Generator(device="cuda").manual_seed(1234)
+rows, b = cfg["batch"], cfg["batch"] // world
+""" + _CHILD_SAME_ROWS + r"""
+# where a rank's rows part from the same rows inside the one-process batch:
+# the first Dense and the model's output on BATCH rows against the same rows
+# of the all-rows forward (cuBLAS may take another GEMM at another M)
+with torch.no_grad():
+    mine = slice(rank * b, (rank + 1) * b)
+    kd = p0[fr.FIRST_KERNEL].to(trainer.model.compute_dtype)
+    bias = p0[fr.FIRST_BIAS]
+    flat = fr.preprocess_flat(trainer.model, x)
+    z_all = flat @ kd
+    z_mine = flat[mine] @ kd
+    o_all = fr.tail_apply(trainer.model, p0, z_all + bias.to(z_all.dtype))
+    o_mine = fr.tail_apply(trainer.model, p0, z_mine + bias.to(z_mine.dtype))
+    same_rows.update(
+        first_dense_rows_bitwise=bool(torch.equal(z_mine, z_all[mine])),
+        output_rows_bitwise=bool(torch.equal(o_mine, o_all[mine])),
+        output_rows_max_abs=float((o_mine - o_all[mine]).abs().max()))
+out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+       "train_losses": res["train_losses"], "steps": res["global_step"],
+       "launches": launches, "kernel_batches": kernel_batches,
+       "replica_checksums": res["replica_checksums"],
+       "log_dir": res["log_dir"], "same_rows": same_rows}
 with open(f"{cfg['out']}{rank}.json", "w") as f:
     json.dump(out, f)
 exit_rank()
@@ -1333,8 +1464,11 @@ def _torchrun(code: str, nproc: int, cfg: dict, env: dict = None) -> float:
         env={**os.environ, "PYTHONPATH": str(ROOT), **(env or {})},
         capture_output=True, text=True, timeout=DP_LAUNCH_TIMEOUT)
     if p.returncode != 0:
+        text = p.stdout + p.stderr
+        first = text.find("Traceback")      # the first rank's failure
         raise AssertionError(f"torchrun ({nproc} ranks) failed:\n"
-                             + (p.stdout + p.stderr)[-8000:])
+                             + (text[first:first + 4000] + "\n...\n"
+                                if first >= 0 else "") + text[-6000:])
     return time.perf_counter() - t0
 
 
@@ -1343,6 +1477,63 @@ def _bf16_w(log_dir: str):
     from video_spike_torch.train.checkpoint import load_checkpoint
 
     return load_checkpoint(log_dir, "model_last")["params"][fr.FIRST_KERNEL]
+
+
+def _dp4_linear(work: Path, train_yaml: Path) -> dict:
+    """DP4_WORLD gloo ranks sharing the card, BATCH rows each, one epoch of
+    the 160-trial fixture (``phase_stream_main_path`` makes it): every
+    fused update runs the kernel on the gathered DP4_WORLD * BATCH rows, a
+    launch a step, the replicas' W bitwise equal; then one step against
+    the one-process step on the same rows. W is bitwise that step's, or
+    the ranks' forward on BATCH rows parts from the same rows inside the
+    all-rows batch (the stated cause: cuBLAS's GEMM at another M), and
+    the difference is reported."""
+    global_rows = DP4_WORLD * BATCH
+    dp4_s = _torchrun(DP4_CHILD, DP4_WORLD, {
+        "argv": _stream_args(work, train_yaml, "dp4_logs"),
+        "out": str(work / "dp4_rank"), "batch": global_rows,
+        "neurons": N_NEURONS}, env={"VST_DIST_BACKEND": "gloo"})
+    ranks4 = [json.loads((work / f"dp4_rank{r}.json").read_text())
+              for r in range(DP4_WORLD)]
+    q0 = ranks4[0]
+    if any(r["backend"] != "gloo" or r["world"] != DP4_WORLD for r in ranks4):
+        raise AssertionError(f"not {DP4_WORLD} gloo ranks: {ranks4}")
+    for key in ("train_losses", "steps", "replica_checksums"):
+        if any(r[key] != q0[key] for r in ranks4):
+            raise AssertionError(f"{DP4_WORLD} ranks differ in {key}: "
+                                 f"{[r[key] for r in ranks4]}")
+    for r in ranks4:
+        if r["steps"] == 0 or r["launches"] != r["steps"] \
+                or r["kernel_batches"] != [global_rows] * r["steps"]:
+            raise AssertionError(f"rank {r['rank']} of {DP4_WORLD}: "
+                                 f"launches {r['launches']}, steps "
+                                 f"{r['steps']}, kernel B "
+                                 f"{r['kernel_batches']}")
+    same4 = [r["same_rows"] for r in ranks4]
+    t0 = same4[0]
+    shared = ("loss_dp", "loss_one_rank", "w_frac_bitwise", "w_outside_1ulp",
+              "w_checksums", "w_max_abs_diff_over_max_update")
+    bitwise = t0["w_frac_bitwise"] == 1.0
+    forward_parts = not all(x["first_dense_rows_bitwise"]
+                            and x["output_rows_bitwise"] for x in same4)
+    if len(set(t0["w_checksums"])) != 1 \
+            or abs(t0["loss_dp"] - t0["loss_one_rank"]) \
+            > DP_LOSS_RTOL * abs(t0["loss_one_rank"]) \
+            or any({k: x[k] for k in shared} != {k: t0[k] for k in shared}
+                   for x in same4) \
+            or not (bitwise or forward_parts):
+        raise AssertionError(f"{DP4_WORLD}-rank step vs one-rank step on "
+                             f"the same {global_rows} rows: {same4}")
+    return {"world": DP4_WORLD, "local_batch": BATCH,
+            "global_batch": global_rows, "steps_per_rank": q0["steps"],
+            "launches_per_rank": [r["launches"] for r in ranks4],
+            "launches": sum(r["launches"] for r in ranks4),
+            "kernel_batches": q0["kernel_batches"],
+            "train_losses": q0["train_losses"],
+            "replica_checksums": q0["replica_checksums"],
+            "same_rows_step": same4, "w_bitwise_one_process": bitwise,
+            "forward_rows_part_at_batch": forward_parts,
+            "launch_seconds": dp4_s}
 
 
 def phase_dist_main_path(work: Path, staged_ms: float) -> dict:
@@ -1354,7 +1545,11 @@ def phase_dist_main_path(work: Path, staged_ms: float) -> dict:
     step on the same 16 rows; (b) NCCL at world 1 under the launcher,
     whose losses and W after 2 epochs equal the non-distributed run's;
     (c) the model-sharded serving session on 2 gloo ranks against the
-    one-rank session."""
+    one-rank session; (d) DP4_WORLD gloo ranks at BATCH rows each on the
+    160-trial fixture, one epoch (2 steps), so the kernel takes the
+    gathered DP4_WORLD * BATCH rows: every launch at that B, launches equal
+    to steps, W checksums equal, and one step against the one-rank step on
+    the same rows."""
     import numpy as np
     import torch
     import yaml
@@ -1501,6 +1696,9 @@ def phase_dist_main_path(work: Path, staged_ms: float) -> dict:
                              f", rows {[int(s['kernel_rows']) for s in served]}")
     _free_card()
 
+    dp4 = _dp4_linear(work, train_yaml)
+    _free_card()
+
     out = {"nvidia_smi": smi, "world": DP_WORLD, "backend": "gloo",
            "local_batch": local, "global_batch": BATCH,
            "train_losses": r0["train_losses"], "steps_per_rank": r0["steps"],
@@ -1525,7 +1723,8 @@ def phase_dist_main_path(work: Path, staged_ms: float) -> dict:
            "serve_kernel_rows_per_rank": KERNEL_M // DP_WORLD,
            "serve_bound": SERVE_REL_BOUND,
            "launch_seconds": {"dp": dp_s, "nccl1": nccl_s, "serve": serve_s},
-           "note": "2 ranks time-slice one card: not a scaling figure"}
+           "dp4": dp4,
+           "note": "ranks time-slice one card: not a scaling figure"}
     out["phase_seconds"] = time.perf_counter() - t_phase
     emit("dist_main_path", **out)
     return out
@@ -3744,6 +3943,7 @@ def main() -> int:
     kernel["launches"] = (main_path["launches"] + lean["launches"]
                           + stream["launches"] + dist["launches"]
                           + dist["resume_launches"] + dist["nccl1_launches"]
+                          + dist["dp4"]["launches"]
                           + tensor["linear"]["launches"]
                           + tensor["linear"]["resume_launches"]
                           + probe["launches"])
@@ -3757,6 +3957,7 @@ def main() -> int:
         "stream_resume": stream["resume_launches"],
         "dp": dist["launches"], "dp_resume": dist["resume_launches"],
         "dp_nccl1": dist["nccl1_launches"],
+        "dp4_b64": dist["dp4"]["launches"],
         "model_axis_linear": tensor["linear"]["launches"],
         "model_axis_linear_resume": tensor["linear"]["resume_launches"],
         "tensor_vtt": tensor["vtt"]["launches"],
@@ -3775,6 +3976,7 @@ def main() -> int:
                              f"on an inference, embedding or ETL path: "
                              f"{kernel['launches_by_path']}")
     kernel["probe"]["launches"] = probe["launches"]
+    kernel["b64"]["launches"] = dist["dp4"]["launches"]
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,11 @@ it. Tolerances:
 - ``lowrank_row_col_sq``: rtol 1e-5 (eigh basis and f32 summation order);
 - chained updates: f32 state rtol 1e-5, bf16 kernel as above per step.
 
+``apply_scaled_outer`` is also held at batches and widths the card's old
+kernel refused (B = 1 and 64 at N = 256, N = 100 and 1000), at an aligned and
+a ragged M, and the CUDA kernel's launch plan is checked for every B up to
+1024 at five widths.
+
 The CUDA kernel against the plain version, on a card, is in
 ``tests/test_torch_kernels_gpu.py`` (a file without JAX, so it also runs on a
 CUDA host that has none).
@@ -293,7 +298,8 @@ def test_f32_kernel_takes_plain_add_like_xla():
 
 def test_cuda_contract_errors():
     """The kernel's checks reject what it does not take before any build:
-    bf16 W only, f32 factors, matching shapes, N % 8 == 0, M > 0."""
+    bf16 W only, f32 factors, matching shapes, contiguous inputs, M, N,
+    B > 0. Any width and batch is taken (the launch plan test below)."""
     w = torch.zeros(16, 256, dtype=torch.bfloat16)
     xa = torch.zeros(4, 16)
     dzc = torch.zeros(4, 256)
@@ -301,10 +307,104 @@ def test_cuda_contract_errors():
         (w.float(), xa, dzc, "bf16 only"),
         (w, xa.double(), dzc, "f32 only"),
         (w, torch.zeros(4, 15), dzc, "shapes"),
-        (torch.zeros(16, 250, dtype=torch.bfloat16), xa, torch.zeros(4, 250),
-         "N % 8"),
         (w.t(), torch.zeros(4, 256), torch.zeros(4, 16), "contiguous"),
+        (torch.zeros(0, 256, dtype=torch.bfloat16), torch.zeros(4, 0), dzc,
+         "need M, N, B > 0"),
     ]
     for w_, xa_, dzc_, msg in cases:
         with pytest.raises(ValueError, match=msg):
             tfr._launch_cuda(w_, xa_, dzc_, 0)
+
+
+# ---------------------------------------------------------------------------
+# shapes the card's old kernel refused (B * (N + 32) floats within 48 KB of
+# shared memory, N % 8 == 0); the JAX fused step takes every one
+# ---------------------------------------------------------------------------
+
+WIDE_SHAPES = [(1, 256), (64, 256), (16, 100), (8, 1000)]
+
+
+def _jax_xla(w_t, xa, dzc, seed):
+    """JAX's XLA path on a copy of W's bits, finished before returning: on
+    the CPU ``jnp.asarray`` may alias the numpy view, and JAX dispatches
+    asynchronously, while the port then updates W in place."""
+    w = jnp.asarray(np.array(_bf16_bits(w_t)).view(jnp.bfloat16))
+    return jfr._apply_scaled_outer_xla(w, jnp.asarray(xa), jnp.asarray(dzc),
+                                       jnp.uint32(seed)).block_until_ready()
+
+
+@pytest.mark.parametrize("m", [384, 389])
+@pytest.mark.parametrize("b,n", WIDE_SHAPES)
+def test_apply_scaled_outer_any_batch_and_width_exact(m, b, n):
+    """Bitwise against the JAX XLA path on exact sums, and against the
+    Pallas kernel (interpret mode) where it takes M (M % 8 == 0)."""
+    rng = np.random.default_rng(m + 7 * b + n)
+    w_t = _torch_bf16(_random_w(rng, m, n))
+    xa, dzc = _exact_factors(rng, b, m, n)
+    ref = _jax_xla(w_t, xa, dzc, 2**32 - 1)
+    out = tfr.apply_scaled_outer(w_t, torch.from_numpy(xa),
+                                 torch.from_numpy(dzc), 2**32 - 1)
+    assert out is w_t
+    np.testing.assert_array_equal(_bf16_bits(w_t), _bf16_bits(ref))
+    if m % 8 == 0:
+        w0 = _torch_bf16(_random_w(np.random.default_rng(m + 7 * b + n),
+                                   m, n))
+        pallas = _jax_pallas(_bf16_bits(w0).view(jnp.bfloat16), xa, dzc,
+                             2**32 - 1)
+        np.testing.assert_array_equal(_bf16_bits(pallas), _bf16_bits(ref))
+
+
+@pytest.mark.parametrize("m", [384, 389])
+@pytest.mark.parametrize("b,n", WIDE_SHAPES)
+def test_apply_scaled_outer_any_batch_and_width_random(m, b, n):
+    """Random inputs: >= 99.9% bitwise against the JAX XLA path, every
+    element within 1 bf16 ulp plus the f32 bound of the B-term sum."""
+    rng = np.random.default_rng(1000 + m + 7 * b + n)
+    w_t = _torch_bf16(_random_w(rng, m, n))
+    xa = rng.normal(size=(b, m)).astype(np.float32) * np.float32(1e-2)
+    dzc = rng.normal(size=(b, n)).astype(np.float32) * np.float32(1e-2)
+    ref = _jax_xla(w_t, xa, dzc, 5)
+    tfr.apply_scaled_outer(w_t, torch.from_numpy(xa), torch.from_numpy(dzc),
+                           5)
+    d = _ulp_diff(_bf16_bits(w_t), _bf16_bits(ref))
+    assert (d == 0).mean() >= 0.999
+    err = b * 2.0**-24 * (np.abs(xa).T @ np.abs(dzc))
+    assert _within_sr_tolerance(_bf16_bits(w_t), _bf16_bits(ref), err).all()
+
+
+@pytest.mark.parametrize("n", [8, 100, 256, 768, 2048])
+def test_cuda_launch_plan_takes_every_batch(n):
+    """Every B in 1..1024 gets a plan that fits a block's shared memory
+    (232,448 bytes; two blocks an SM at most 115,712 each), with TM a
+    multiple of 8, at least 2 stages, a B-chunk within B, and the bytes of
+    the kernel's layout."""
+    for b in range(1, 1025):
+        for m in (389, 1_966_080):
+            p = tfr._launch_plan(m, n, b)
+            assert p.tm % 8 == 0 and p.tm > 0, p
+            assert 2 <= p.stages <= tfr._MAX_STAGES, p
+            assert 1 <= p.b_chunk <= b, p
+            assert p.b_chunk == b or not p.dzc_resident, p
+            assert 0 < p.tn <= n and (p.tn == n or p.tn % 32 == 0), p
+            assert p.smem_bytes == tfr._smem_bytes(
+                p.tm, p.tn, p.stages, p.b_chunk, b, n, p.vec,
+                p.dzc_resident, p.acc_smem), p
+            assert p.smem_bytes <= (115_712 if p.blocks_per_sm == 2
+                                    else 232_448), p
+            assert p.vec == (n % 8 == 0), p
+            assert p.xa_tma == (m % 4 == 0), p
+
+
+def test_cuda_launch_plan_main_path_shapes():
+    """The fused steps' shapes keep dzc resident beside a ring of at least
+    2 stages: the Linear (B = 16), the probe head (B = 8) and 4 gathered
+    data-parallel ranks (B = 64), two blocks an SM; unaligned views take
+    the producer's own loads and single-column items."""
+    for m, b in ((1_966_080, 16), (1_204_224, 8), (1_966_080, 64)):
+        p = tfr._launch_plan(m, 256, b)
+        assert p.dzc_resident and p.vec and p.xa_tma and p.w_mode == 1, p
+        assert p.blocks_per_sm == 2 and p.stages >= 2, p
+    p = tfr._launch_plan(4133, 256, 16, w_aligned=False, xa_aligned=False)
+    assert not p.vec and not p.xa_tma and p.w_mode == 0, p
+    p = tfr._launch_plan(389, 2048, 1024)
+    assert not p.dzc_resident and p.acc_smem and p.w_mode == 2, p

@@ -13,8 +13,13 @@ Tolerances: bitwise on exact-sum inputs (small integers times powers of two,
 so every f32 rank-B sum is exact in any order); on random inputs >= 99.9%
 bitwise and every element within 1 bf16 ulp plus the f32 error bound of
 the rank-B sum (the kernel's summation order may differ from torch's
-matmul, which can flip a rounding). The host I/O's card paths (the pinned
-prefetch, the background fetch) are held bitwise against the CPU path. Two
+matmul, which can flip a rounding). The kernel takes any (M, B, N): the
+cases cover a ragged M, one tile, the probe head, the gathered batch of 4
+data-parallel ranks (B = 64), B = 1, N % 8 != 0 (with a W tile that ends
+off a 16-byte boundary), a B whose dzc does not fit shared memory (B = 256,
+walked in chunks) and unaligned views (the producer's own loads). The
+host I/O's card paths (the pinned prefetch, the background fetch) are held
+bitwise against the CPU path. Two
 gloo ranks on one card run the data-parallel fused step (each gathers the
 other's rank-B factors) and end with bitwise-equal kernels; two gloo
 ranks run a column-split Dense (``parallel/tensor``) on CUDA tensors
@@ -61,12 +66,17 @@ def _random_w(rng, m, n) -> torch.Tensor:
         rng.normal(size=(m, n)).astype(np.float32)).to(torch.bfloat16)
 
 
+# (M, B, N): ragged M; one tile; the probe head; the gathered batch of 4
+# data-parallel ranks; B = 1; N % 8 != 0; dzc walked in chunks of B
+KERNEL_SHAPES = [(4133, 16, 256), (32, 16, 256), (1_204_224, 8, 256),
+                 (20_000, 64, 256), (4133, 1, 256), (1000, 16, 100),
+                 (2000, 256, 256)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,b", [(4133, 16), (32, 16),   # ragged; one tile
-                                 (1_204_224, 8)])        # the probe head
-def test_cuda_kernel_matches_plain(cuda_device, m, b):
+@pytest.mark.parametrize("m,b,n", KERNEL_SHAPES + [(4133, 16, 100)])
+def test_cuda_kernel_matches_plain(cuda_device, m, b, n):
     rng = np.random.default_rng(5)
-    n = 256
     w = _random_w(rng, m, n)
     xa, dzc = _exact_factors(rng, b, m, n)
     for seed in SEEDS:
@@ -82,23 +92,50 @@ def test_cuda_kernel_matches_plain(cuda_device, m, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,b", [(20_000, 16),       # the Linear path's B
-                                 (1_204_224, 8)])    # the probe head's shape
-def test_cuda_kernel_random_inputs_within_one_ulp(cuda_device, m, b):
+@pytest.mark.parametrize("m,b,n", KERNEL_SHAPES + [(20_000, 16, 256)])
+def test_cuda_kernel_random_inputs_within_one_ulp(cuda_device, m, b, n):
     rng = np.random.default_rng(6)
-    n = 256
     w = _random_w(rng, m, n)
     xa = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32) * 1e-2)
     dzc = torch.from_numpy(rng.normal(size=(b, n)).astype(np.float32) * 1e-2)
     ref = tfr._apply_scaled_outer_plain(w, xa, dzc, 3).float()
     w_d = w.to(cuda_device)
-    tfr.apply_scaled_outer(w_d, xa.to(cuda_device), dzc.to(cuda_device), 3)
+    before = tfr.apply_scaled_outer.launches
+    out = tfr.apply_scaled_outer(w_d, xa.to(cuda_device),
+                                 dzc.to(cuda_device), 3)
+    assert out.data_ptr() == w_d.data_ptr()              # in place
+    assert tfr.apply_scaled_outer.launches == before + 1
     got = w_d.cpu().float()
     assert (got == ref).float().mean().item() >= 0.999
     big = torch.maximum(got.abs(), ref.abs()).clamp_min(1e-38)
     ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
     err = b * 2.0**-24 * (xa.abs().T @ dzc.abs())
     assert bool(((got - ref).abs() <= ulp + err).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_offset,xa_offset", [(1, 1), (4, 2), (0, 1)])
+def test_cuda_kernel_unaligned_views(cuda_device, w_offset, xa_offset):
+    """Contiguous views that start off a 16-byte boundary: W and xa are
+    then loaded by the producer warp (no bulk copy) and W is stored a
+    column at a time; bitwise against the plain version on exact sums."""
+    rng = np.random.default_rng(7)
+    m, b, n = 389, 16, 256
+    w = _random_w(rng, m, n)
+    xa, dzc = _exact_factors(rng, b, m, n)
+    ref = tfr._apply_scaled_outer_plain(w, xa, dzc, 11)
+    w_buf = torch.empty(m * n + w_offset, dtype=torch.bfloat16,
+                        device=cuda_device)
+    w_d = w_buf[w_offset:].view(m, n)
+    w_d.copy_(w.to(cuda_device))
+    xa_buf = torch.empty(b * m + xa_offset, device=cuda_device)
+    xa_d = xa_buf[xa_offset:].view(b, m)
+    xa_d.copy_(xa.to(cuda_device))
+    before = tfr.apply_scaled_outer.launches
+    tfr.apply_scaled_outer(w_d, xa_d, dzc.to(cuda_device), 11)
+    torch.cuda.synchronize()
+    assert tfr.apply_scaled_outer.launches == before + 1
+    np.testing.assert_array_equal(_bf16_bits(w_d), _bf16_bits(ref))
 
 
 @pytest.mark.gpu

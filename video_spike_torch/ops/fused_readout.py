@@ -12,9 +12,11 @@ factors without ever forming G:
 2. The scaled update is ``(x*a)^T @ (dz*c)``, and the parameter write
    ``W <- SR(W + xa^T @ dzc)`` is one hand-written CUDA kernel
    (``csrc/fused_readout.cu``) that streams W once in and once out, in
-   place. Its plain torch version, ``_apply_scaled_outer_plain``, forms the
-   f32 (M, N) product, the index and the hash like the JAX package's XLA
-   path; it runs for CPU tensors and as the kernel's reference.
+   place, for any M, N and B. Its shared-memory plan (tile, ring depth,
+   B-chunk) is computed here by ``_launch_plan`` and passed to the kernel.
+   Its plain torch version, ``_apply_scaled_outer_plain``, forms the f32
+   (M, N) product, the index and the hash like the JAX package's XLA path;
+   it runs for CPU tensors and as the kernel's reference.
 
 The same update carries the VideoMAE probe's ``encoder_head`` kernel,
 (1,204,224, 256) at batch 8, over cached frozen features
@@ -36,6 +38,7 @@ flat index ``row*N + col``, match the JAX package's.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Mapping, NamedTuple
 
 import numpy as np
@@ -52,7 +55,6 @@ from video_spike_torch.parallel.multihost import (
 _LEAF_CONST = (999983 * 0x85EBCA6B) & MASK32
 
 _SOURCE = "fused_readout.cu"
-_SMEM_BYTES = 48 * 1024
 # rows of the plain version's f32 product held at once (bounds its memory)
 _PLAIN_CHUNK_ELEMS = 1 << 24
 
@@ -131,6 +133,140 @@ def _apply_scaled_outer_plain(w: torch.Tensor, xa: torch.Tensor,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the CUDA kernel's launch plan (csrc/fused_readout.cu; its layout mirrors
+# _smem_bytes, and the kernel refuses a plan whose bytes disagree)
+# ---------------------------------------------------------------------------
+
+_SMEM_ONE_BLOCK = 232_448    # opt-in dynamic shared memory of a block (sm_90)
+_SMEM_TWO_BLOCKS = 115_712   # two blocks an SM: 2 * (bytes + 1 KB) <= 228 KB
+_CONSUMERS = 256             # the kernel's consumer threads (8 warps)
+_ROWS = 4                    # the rows a consumer item owns
+_MAX_STAGES = 4
+_W_TILE_BYTES = 16_384       # the preferred W tile (TM rows x TN columns)
+
+
+class LaunchPlan(NamedTuple):
+    """How the kernel lays out one launch. ``tm`` x ``tn`` is a W tile,
+    ``stages`` the ring's depth, ``b_chunk`` the factor rows a ring stage
+    holds (``b_chunk == B`` and ``dzc_resident``: dzc stays in shared memory
+    for the block's life), ``vec`` 8-column items with 16-byte stores (N %
+    8 == 0 and W 16-byte aligned) or single columns, ``w_mode`` how a W
+    tile arrives (0: the producer warp's loads, 1: one bulk copy of the
+    contiguous tile, 2: one bulk copy a row), ``xa_tma`` whether xa's rows
+    arrive by bulk copy (M % 4 == 0, xa 16-byte aligned), ``acc_smem``
+    whether a B-chunked tile keeps its sums in shared memory (more items
+    than consumer threads)."""
+    tm: int
+    tn: int
+    stages: int
+    b_chunk: int
+    vec: bool
+    w_mode: int
+    xa_tma: bool
+    dzc_resident: bool
+    acc_smem: bool
+    smem_bytes: int
+    blocks_per_sm: int
+
+
+def _align(x: int, a: int = 128) -> int:
+    return (x + a - 1) // a * a
+
+
+def _items(tm: int, tn: int, vec: bool) -> int:
+    """Consumer items of a tile, padded to whole warps: an item is _ROWS
+    rows x 8 columns (vec) or x 1 column, and a warp takes 4 row groups x 8
+    column groups (vec) or one row group x 32 columns."""
+    if vec:
+        return (tm // _ROWS) * (-(-(tn // 8) // 8) * 8)
+    return (tm // _ROWS) * (-(-tn // 32) * 32)
+
+
+def _smem_bytes(tm, tn, stages, b_chunk, b, n, vec, dzc_resident,
+                acc_smem) -> int:
+    """Bytes of the kernel's dynamic shared memory: the ring's barriers,
+    the resident dzc (B x N f32), the B-chunked sums, then ``stages``
+    stages of [W tile (tm x tn bf16) | xa (b_chunk x tm f32) | dzc chunk
+    (b_chunk x tn f32, when not resident)], each part 128-byte aligned."""
+    stage = (_align(tm * tn * 2) + _align(b_chunk * tm * 4)
+             + (0 if dzc_resident else _align(b_chunk * tn * 4)))
+    acc = (_align(_items(tm, tn, vec) * _ROWS * (8 if vec else 1) * 4)
+           if acc_smem else 0)
+    return (_align(16 * stages) + (_align(b * n * 4) if dzc_resident else 0)
+            + acc + stages * stage)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(m: int, n: int, b: int, *, w_aligned: bool = True,
+                 xa_aligned: bool = True) -> LaunchPlan:
+    """The launch plan for W (m, n), xa (b, m), dzc (b, n): every shape gets
+    one. Candidates are scored, best first, by: dzc resident; the widest
+    column tile; consumer threads with work on an SM; W bytes in flight on
+    an SM (the ring less the stage being computed); the tallest tile."""
+    vec = n % 8 == 0 and w_aligned
+    tm_step = 4 * _ROWS if vec else 8
+    col_step = 64 if vec else 32
+    xa_tma = m % 4 == 0 and xa_aligned
+    tns = [n] + [t for t in (4096, 2048, 1024, 512, 256, 128, 64, 32)
+                 if t < n and t % col_step == 0]
+    best, best_key = None, None
+    for tn in tns:
+        # the preferred W tile, or the rows that give every consumer an item
+        fill = -(-_CONSUMERS * tm_step // _items(tm_step, tn, vec))
+        tm_top = max(_W_TILE_BYTES // (2 * tn), fill)
+        tm_top = max(tm_step, min(256, -(-m // tm_step) * tm_step,
+                                  tm_top // tm_step * tm_step))
+        for tm in range(tm_top, 0, -tm_step):
+            items = _items(tm, tn, vec)
+            for bps, cap in ((2, _SMEM_TWO_BLOCKS), (1, _SMEM_ONE_BLOCK)):
+                for resident in (True, False):
+                    acc_smem = not resident and items > _CONSUMERS
+
+                    def size(stages, bc):
+                        return _smem_bytes(tm, tn, stages, bc, b, n, vec,
+                                           resident, acc_smem)
+
+                    if resident:
+                        bc = b
+                    else:   # the most factor rows that fit a 2-stage ring
+                        lo, hi = 0, b
+                        while lo < hi:
+                            mid = (lo + hi + 1) // 2
+                            lo, hi = (mid, hi) if size(2, mid) <= cap \
+                                else (lo, mid - 1)
+                        bc = lo if lo <= 8 else lo - lo % 8
+                    if bc == 0 or size(2, bc) > cap:
+                        continue
+                    stages = 2
+                    while stages < _MAX_STAGES and size(stages + 1, bc) <= cap:
+                        stages += 1
+                    key = (resident, tn, bps * min(items, _CONSUMERS),
+                           bps * (stages - 1) * tm * tn * 2, tm)
+                    if best_key is None or key > best_key:
+                        if vec:
+                            w_mode = 1 if tn == n else 2
+                        else:
+                            w_mode = 1 if tn == n and w_aligned else 0
+                        best_key = key
+                        best = LaunchPlan(tm, tn, stages, bc, vec, w_mode,
+                                          xa_tma, resident, acc_smem,
+                                          size(stages, bc), bps)
+    return best
+
+
+class _CPlan(ctypes.Structure):
+    """``VstPlan`` of csrc/fused_readout.cu."""
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "tm", "tn", "stages", "b_chunk", "vec", "w_mode", "xa_tma",
+        "dzc_resident", "acc_smem", "smem_bytes", "grid")]
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch_cuda(w: torch.Tensor, xa: torch.Tensor, dzc: torch.Tensor,
                  seed: int) -> None:
     m, n = w.shape
@@ -149,25 +285,27 @@ def _launch_cuda(w: torch.Tensor, xa: torch.Tensor, dzc: torch.Tensor,
     if not (w.is_contiguous() and xa.is_contiguous()
             and dzc.is_contiguous()):
         problems.append("non-contiguous input")
-    if m == 0 or b == 0 or n == 0 or n % 8:
-        problems.append(f"M={m}, N={n}, B={b} (need M, B > 0 and N % 8 == 0)")
+    if m == 0 or b == 0 or n == 0:
+        problems.append(f"M={m}, N={n}, B={b} (need M, N, B > 0)")
     if problems:
         raise ValueError("apply_scaled_outer kernel: " + "; ".join(problems))
+    plan = _launch_plan(m, n, b, w_aligned=w.data_ptr() % 16 == 0,
+                        xa_aligned=xa.data_ptr() % 16 == 0)
+    tiles = -(-m // plan.tm) * -(-n // plan.tn)
+    grid = min(tiles, plan.blocks_per_sm * _sm_count(dev.index))
+    c_plan = _CPlan(plan.tm, plan.tn, plan.stages, plan.b_chunk,
+                    int(plan.vec), plan.w_mode, int(plan.xa_tma),
+                    int(plan.dzc_resident), int(plan.acc_smem),
+                    plan.smem_bytes, grid)
     lib = _library()
-    tile_rows = lib.vst_fused_readout_tile_rows()
-    smem = 4 * b * (n + tile_rows)
-    if smem > _SMEM_BYTES:
-        raise ValueError(f"apply_scaled_outer kernel: B*(N+{tile_rows}) "
-                         f"floats = {smem} B of shared memory > "
-                         f"{_SMEM_BYTES}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.vst_apply_scaled_outer_bf16(
             w.data_ptr(), xa.data_ptr(), dzc.data_ptr(), m, n, b,
-            int(seed) & MASK32, stream)
+            int(seed) & MASK32, ctypes.byref(c_plan), stream)
     if err != 0:
         raise RuntimeError(f"apply_scaled_outer kernel launch failed: "
-                           f"cudaError {err}")
+                           f"cudaError {err} ({plan})")
     apply_scaled_outer.launches += 1
 
 
@@ -179,10 +317,9 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_uint32, ctypes.c_void_p]
+                       ctypes.c_uint32, ctypes.POINTER(_CPlan),
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.vst_fused_readout_tile_rows.argtypes = []
-        lib.vst_fused_readout_tile_rows.restype = ctypes.c_int
     return lib
 
 
