@@ -1,9 +1,31 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (``video_spike_torch``) on one H100.
+"""Smoke run of the PyTorch/CUDA port (``video_spike_torch``) on one H100,
+or on four.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # one card
+    python3 chip_smoke.py --cards 4    # four cards, one NCCL rank a card
 
-Phases, one JSON line each on stdout:
+``--cards 4`` needs four visible cards (with fewer it exits 2, naming the
+count; it never falls back to gloo or to one card). It builds the kernels,
+runs the kernel phase on each card at once, then the multi-rank paths
+under ``torch.distributed.run --standalone --nproc_per_node=4`` over NCCL,
+each rank reporting its backend, card index, name and PCI bus id: (a) the
+data-parallel production Linear through ``cli.train`` at 4 ranks x 16
+rows, 2 epochs and a resume (a launch a step at the gathered B = 64, the
+replicas equal every epoch; W after a first step bitwise that of the same
+step on 4 gloo ranks sharing card 0; ms/step against one card's 16- and
+64-row steps; the factor gather's bytes and ms; each card's peak memory);
+(b) the Linear on {data: 2, model: 2}, W bitwise {data: 2, model: 1}'s;
+(c) the tensor-sharded VTT on {data: 2, model: 2} against the unsplit step;
+(d) the Linear and VTT ``model_best``s served split over model = 4, by
+rows and by columns; (e) SSL data-parallel, 4 ranks x 128 triplets through
+``pretrain.main(data=)``, 20 steps then a resume to 30; (f) 16 clean
+four-rank launches and a raising rank (under the launcher, and as plain
+processes ended by the process group's timeout); (g) the multi-process
+smokes of ``parallel/``. Every phase runs; the run fails after them if any
+failed. Its last line's ``count`` is 4.
+
+Phases of the one-card run, one JSON line each on stdout:
 
 1. build: compile every hand-written kernel from ``video_spike_torch/csrc``
    (one ``nvcc`` per source, all at once) and print the card's name and
@@ -660,6 +682,29 @@ def phase_main_path(work: Path) -> dict:
     return out
 
 
+def staged_window_ms(trainer, epochs: int) -> tuple:
+    """(ms/step of each window, steps a window) of a trainer's staged
+    epochs (CUDA events): one epoch to stage the trials and warm up, then
+    REPS windows of `epochs` epochs."""
+    import torch
+
+    trainer.train_epoch()
+    windows = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        step0 = trainer.global_step
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(epochs):
+            trainer.train_epoch()
+        end.record()
+        torch.cuda.synchronize()
+        steps = trainer.global_step - step0
+        windows.append(start.elapsed_time(end) / steps)
+    return windows, steps
+
+
 def staged_ms_per_step(work: Path, train_yaml: Path, log_dir: str) -> dict:
     """ms/step of the staged train step on the Linear fixture, CUDA events
     over REPS windows of 20 steps (the median and every window), through
@@ -676,21 +721,8 @@ def staged_ms_per_step(work: Path, train_yaml: Path, log_dir: str) -> dict:
          "--batch_size", str(BATCH), "--device", "cuda"])
     trainer = train_cli.build_trainer(args)
     torch.cuda.reset_peak_memory_stats()
-    trainer.train_epoch()                         # stages data, warms up
     epochs = 10
-    windows = []
-    for _ in range(REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        step0 = trainer.global_step
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(epochs):
-            trainer.train_epoch()
-        end.record()
-        torch.cuda.synchronize()
-        steps = trainer.global_step - step0
-        windows.append(start.elapsed_time(end) / steps)
+    windows, steps = staged_window_ms(trainer, epochs)
     ms = statistics.median(windows)
     return {"ms_per_step": ms, "ms_per_step_windows": windows,
             "steps_per_window": steps, "batch": BATCH,
@@ -1203,6 +1235,47 @@ DP_LOSS_RTOL = 1e-3           # the 2-rank step's loss against one rank's
 DP_SERVE_BUCKETS = (1, 2, 4, 8)
 DP_SERVE_ROWS = (3, 8)
 
+
+def _backend_env(backend: str) -> dict:
+    """The ranks' environment for `backend`: gloo is asked for by name
+    (ranks sharing the card); NCCL is what ``setup_runtime`` picks for
+    ``cuda`` when ``VST_DIST_BACKEND`` is unset (``main_cards`` unsets
+    it)."""
+    return {"VST_DIST_BACKEND": "gloo"} if backend == "gloo" else {}
+
+
+def card_report() -> dict:
+    """This rank's backend and card: index, name, PCI bus id (as
+    ``nvidia-smi`` writes it) and UUID."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.cuda.current_device()
+    props = torch.cuda.get_device_properties(dev)
+    pci = (None if getattr(props, "pci_bus_id", None) is None else
+           f"{props.pci_domain_id:08X}:{props.pci_bus_id:02X}:"
+           f"{props.pci_device_id:02X}.0")
+    return {"rank": dist.get_rank(), "world": dist.get_world_size(),
+            "local_rank": int(os.environ.get("LOCAL_RANK", -1)),
+            "backend": dist.get_backend(), "current_device": dev,
+            "name": torch.cuda.get_device_name(dev), "pci_bus_id": pci,
+            "uuid": str(props.uuid)}
+
+
+def check_cards(reports: list, world: int) -> None:
+    """`world` ranks, every one on NCCL and on a card of its own (distinct
+    device index, UUID and PCI bus id); raises naming the reports."""
+    keys = ("current_device", "uuid") + (
+        ("pci_bus_id",) if all(r["pci_bus_id"] for r in reports) else ())
+    if len(reports) != world \
+            or any(r["backend"] != "nccl" or r["world"] != world
+                   for r in reports) \
+            or any(len({r[k] for r in reports}) != world for k in keys):
+        raise AssertionError(f"want {world} NCCL ranks on {world} distinct "
+                             f"cards: {reports}")
+
 _CHILD_TIMING = r"""
 def staged_ms(trainer, windows, epochs, barrier=None):
     trainer.train_epoch()                       # stages the trials, warms
@@ -1450,10 +1523,12 @@ exit_rank()
 """
 
 
-def _torchrun(code: str, nproc: int, cfg: dict, env: dict = None) -> float:
+def _torchrun(code: str, nproc: int, cfg: dict, env: dict = None,
+              timeout: float = None) -> float:
     """``python -m torch.distributed.run --standalone`` with `nproc` ranks
-    running `code` on ``json.dumps(cfg)``; raises with the output's tail on
-    a non-zero exit; returns the wall seconds."""
+    running `code` on ``json.dumps(cfg)`` (within `timeout` seconds,
+    DP_LAUNCH_TIMEOUT by default); raises with the output's tail on a
+    non-zero exit; returns the wall seconds."""
     import os
 
     t0 = time.perf_counter()
@@ -1462,7 +1537,7 @@ def _torchrun(code: str, nproc: int, cfg: dict, env: dict = None) -> float:
          f"--nproc_per_node={nproc}", "--no-python", sys.executable, "-c",
          code, json.dumps(cfg)],
         env={**os.environ, "PYTHONPATH": str(ROOT), **(env or {})},
-        capture_output=True, text=True, timeout=DP_LAUNCH_TIMEOUT)
+        capture_output=True, text=True, timeout=timeout or DP_LAUNCH_TIMEOUT)
     if p.returncode != 0:
         text = p.stdout + p.stderr
         first = text.find("Traceback")      # the first rank's failure
@@ -1843,6 +1918,7 @@ from video_spike_torch.core.runtime import exit_rank
 from video_spike_torch.ops import fused_readout as fr
 from video_spike_torch.parallel import multihost as mh
 from video_spike_torch.train.checkpoint import load_checkpoint
+from chip_smoke import card_report
 
 cfg = json.loads(sys.argv[1])
 fr.apply_scaled_outer.launches = 0
@@ -1858,7 +1934,8 @@ if rank == 0:
     del w
 mh.barrier()
 fr.apply_scaled_outer.launches = 0
-res2 = train_cli.main(cfg["argv"] + ["--num_epochs", "3", "--resume"])
+res2 = (train_cli.main(cfg["argv"] + ["--num_epochs", "3", "--resume"])
+        if cfg.get("resume", True) else res)
 out = {"rank": rank, "world": mh.process_count(),
        "backend": dist.get_backend(), "train_losses": res["train_losses"],
        "steps": res["global_step"], "launches": launches,
@@ -1867,7 +1944,8 @@ out = {"rank": rank, "world": mh.process_count(),
        "resume_steps": res2["global_step"] - res["global_step"],
        "resume_launches": fr.apply_scaled_outer.launches,
        "resume_replica_checksums": res2["replica_checksums"],
-       "test": res["test_res"], "log_dir": res["log_dir"]}
+       "test": res["test_res"], "log_dir": res["log_dir"],
+       "card": card_report()}
 with open(f"{cfg['out']}{rank}.json", "w") as f:
     json.dump(out, f)
 exit_rank()
@@ -1878,7 +1956,7 @@ exit_rank()
 TP_VTT_CHILD = r"""
 import json, sys
 import torch
-from chip_smoke import tensor_vtt_run
+from chip_smoke import card_report, tensor_vtt_run
 from video_spike_torch.core.runtime import exit_rank, setup_runtime
 from video_spike_torch.ops import fused_readout as fr
 from video_spike_torch.parallel import multihost as mh
@@ -1893,7 +1971,8 @@ for d in ("f32", "bf16"):
         torch.save(full, f"{cfg['out']}_{d}.pt")
     runs.append(run)
     del full
-out = {"runs": runs, "launches": fr.apply_scaled_outer.launches}
+out = {"runs": runs, "launches": fr.apply_scaled_outer.launches,
+       "card": card_report()}
 with open(f"{cfg['out']}{mh.process_index()}.json", "w") as f:
     json.dump(out, f)
 exit_rank()
@@ -2013,25 +2092,29 @@ def _param_diff(got: dict, want: dict) -> dict:
     return {"max_abs": worst, "bitwise_share": same / total}
 
 
-def _tp_vtt(work: Path) -> dict:
+def _tp_vtt(work: Path, backend: str = "gloo") -> dict:
     """(b) the tensor-sharded VTT at full width on TP_MESH (4 gloo ranks
-    sharing the card) against the unsplit step in this process on the same
-    rows from the same init, in f32 and in bf16."""
+    sharing the card, or 4 NCCL ranks on 4 cards) against the unsplit step
+    in this process on the same rows from the same init, in f32 and in
+    bf16."""
     import torch
 
     world = TP_MESH["data"] * TP_MESH["model"]
     base = work / "tp_vtt"
     seconds = _torchrun(TP_VTT_CHILD, world, {"out": str(base)},
-                        env={"VST_DIST_BACKEND": "gloo"})
+                        env=_backend_env(backend))
     ranks = [json.loads((work / f"tp_vtt{r}.json").read_text())
              for r in range(world)]
     if any(r["launches"] for r in ranks):
         raise AssertionError(f"the tensor-sharded VTT launched the fused "
                              f"readout: {[r['launches'] for r in ranks]}")
+    if backend == "nccl":
+        check_cards([r["card"] for r in ranks], world)
     atol = tp_param_atol()
-    out = {"mesh": TP_MESH, "world": world, "backend": "gloo",
+    out = {"mesh": TP_MESH, "world": world, "backend": backend,
            "global_batch": TP_BATCH, "param_atol": atol,
-           "launch_seconds": seconds, "launches": 0}
+           "launch_seconds": seconds, "launches": 0,
+           "cards": [r["card"] for r in ranks]}
     for i, (name, rtol) in enumerate((("f32", TP_F32_LOSS_RTOL),
                                       ("bf16", TP_BF16_LOSS_RTOL))):
         runs = [r["runs"][i] for r in ranks]
@@ -2839,6 +2922,14 @@ def phase_ssl_step_time(work: Path, data: dict) -> dict:
     """ms/step of the staged SSL train step (frame cache live, batch 128
     triplets): CUDA events over REPS windows of SSL_STEPS steps (the median
     and every window), through the trainer ``cli.pretrain`` builds."""
+    out = ssl_step_ms(work, data)
+    emit("ssl_step_time", **out)
+    return out
+
+
+def ssl_step_ms(work: Path, data: dict) -> dict:
+    """The figures of :func:`phase_ssl_step_time`, on this process's
+    card."""
     import torch
     import yaml
 
@@ -2871,7 +2962,6 @@ def phase_ssl_step_time(work: Path, data: dict) -> dict:
            "frames_per_s": frames / (ms / 1e3), "peak_mem_gb": peak,
            "model_tflop_per_step": tflop,
            "bf16_peak_share": tflop * 1e12 / (ms / 1e3) / BF16_FLOP_PER_S}
-    emit("ssl_step_time", **out)
     return out
 
 
@@ -3392,6 +3482,7 @@ SPLIT_CASES = (("linear", "first256"), ("linear", "vtt"),
 SPLIT_SERVE_CHILD = r"""
 import functools, json, sys, time
 import numpy as np
+from chip_smoke import card_report
 from video_spike_torch.core.runtime import exit_rank, setup_runtime
 from video_spike_torch.models.linear import first_layer_sharding_rules
 from video_spike_torch.models.vtt import vtt_sharding_rules
@@ -3435,6 +3526,7 @@ for model, rules in cfg["cases"]:
     report[f"{model}_{rules}"] = r
     del session
 report["launches"] = fr.apply_scaled_outer.launches
+report["card"] = card_report()
 with open(f"{cfg['out']}{mh.process_index()}.json", "w") as f:
     json.dump(report, f)
 np.savez(f"{cfg['out']}{mh.process_index()}.npz", **outs)
@@ -3442,13 +3534,14 @@ exit_rank()
 """
 
 
-def _split_want(params: dict, rules: str) -> dict:
-    """{leaf: split dim} of a rule set on a {data: 1, model: 2} grid."""
+def _split_want(params: dict, rules: str, n_model: int = 2) -> dict:
+    """{leaf: split dim} of a rule set on a {data: 1, model: n_model}
+    grid."""
     from video_spike_torch.models.linear import first_layer_sharding_rules
     from video_spike_torch.models.vtt import vtt_sharding_rules
     from video_spike_torch.parallel.mesh import Mesh
 
-    mesh = Mesh({"data": 1, "model": 2}, {"data": 0, "model": 0},
+    mesh = Mesh({"data": 1, "model": n_model}, {"data": 0, "model": 0},
                 {"data": None, "model": None})
     placed = (vtt_sharding_rules(params, mesh) if rules == "vtt" else
               first_layer_sharding_rules(params, mesh,
@@ -3457,18 +3550,23 @@ def _split_want(params: dict, rules: str) -> dict:
             if p.axis is not None}
 
 
-def phase_split_serve_path(work: Path) -> dict:
-    """The serve phases' ``model_best``s served split over 2 gloo ranks
-    sharing the card: the full-width Linear under
-    ``first_layer_sharding_rules(min_dim=256)`` (three kernels split by
-    rows) and under ``vtt_sharding_rules`` (kernels split by columns), at
-    buckets 1, 4 and 16; the VTT under ``first_layer_sharding_rules(
+def phase_split_serve_path(work: Path, world: int = 2,
+                           backend: str = "gloo", cases=SPLIT_CASES,
+                           linear=("data", "smokeeid0", "logs"),
+                           name: str = "split_serve_path") -> dict:
+    """The serve phases' ``model_best``s served split over `world` ranks
+    (2 gloo ranks sharing the card; 4 NCCL ranks on 4 cards, where the VTT
+    is also split by columns: `cases`; `linear` names the Linear's fixture
+    directory, session and log root under `work`): the full-width Linear
+    under ``first_layer_sharding_rules(min_dim=256)`` (three kernels split
+    by rows) and under ``vtt_sharding_rules`` (kernels split by columns),
+    at buckets 1, 4 and 16; the VTT under ``first_layer_sharding_rules(
     min_dim=512)`` (every 512-input kernel split by rows) at bucket 4 with
     session ids. Each against the one-rank session on the same rows within
-    SERVE_REL_BOUND, the ranks bitwise equal, every split leaf holding half
-    its rows or columns, no leaf gathered, the fused readout never
-    launched; ``predict`` ms by size against the one-rank session, and the
-    bytes each request all-reduces and all-gathers."""
+    SERVE_REL_BOUND, the ranks bitwise equal, every split leaf holding
+    1/`world` of its rows or columns, no leaf gathered, the fused readout
+    never launched; ``predict`` ms by size against the one-rank session,
+    and the bytes each request all-reduces and all-gathers."""
     import numpy as np
     import yaml
 
@@ -3476,16 +3574,17 @@ def phase_split_serve_path(work: Path) -> dict:
 
     t_phase = time.perf_counter()
     _free_card()
-    rows = _fixture_trials(work / "data", "smokeeid0",
+    data, eid, logs = linear
+    rows = _fixture_trials(work / data, eid,
                            max(SPLIT_SIZES)).reshape(max(SPLIT_SIZES), -1)
     video, sids = _vtt_trials(work, SPLIT_VTT_ROWS)
-    for name, arr in (("split_rows", rows), ("split_video", video),
+    for stem, arr in (("split_rows", rows), ("split_video", video),
                       ("split_sids", sids)):
-        np.save(work / f"{name}.npy", arr)
-    cases = {
+        np.save(work / f"{stem}.npy", arr)
+    models = {
         "linear": {"model_config": yaml.safe_load(
             _serve_yaml(work).read_text()),
-            "ckpt_dir": str(_ckpt_dir(work / "logs")),
+            "ckpt_dir": str(_ckpt_dir(work / logs)),
             "buckets": list(SPLIT_BUCKETS), "sizes": list(SPLIT_SIZES),
             "rows": str(work / "split_rows.npy")},
         "vtt": {"model_config": yaml.safe_load(
@@ -3494,28 +3593,32 @@ def phase_split_serve_path(work: Path) -> dict:
             "buckets": [SPLIT_VTT_ROWS], "sizes": [SPLIT_VTT_ROWS],
             "rows": str(work / "split_video.npy"),
             "sids": str(work / "split_sids.npy")}}
-    launch_s = _torchrun(SPLIT_SERVE_CHILD, 2, {
-        **cases, "cases": [list(c) for c in SPLIT_CASES],
+    launch_s = _torchrun(SPLIT_SERVE_CHILD, world, {
+        **models, "cases": [list(c) for c in cases],
         "reps": SPLIT_REPS, "out": str(work / "split_serve")},
-        env={"VST_DIST_BACKEND": "gloo"})
-    served = [np.load(work / f"split_serve{r}.npz") for r in range(2)]
+        env=_backend_env(backend))
+    served = [np.load(work / f"split_serve{r}.npz") for r in range(world)]
     reports = [json.loads((work / f"split_serve{r}.json").read_text())
-               for r in range(2)]
-    out = {"cases": {}, "bound": SERVE_REL_BOUND,
+               for r in range(world)]
+    out = {"world": world, "backend": backend, "cases": {},
+           "bound": SERVE_REL_BOUND,
            "fused_readout_launches": sum(r["launches"] for r in reports),
-           "launch_seconds": launch_s}
+           "launch_seconds": launch_s,
+           "cards": [r["card"] for r in reports]}
+    if backend == "nccl":
+        check_cards(out["cards"], world)
     bad = []
     for model in ("linear", "vtt"):
-        c = cases[model]
+        c = models[model]
         one = InferenceSession.from_checkpoint(
             c["model_config"], c["ckpt_dir"], bucket_sizes=c["buckets"],
             device="cuda")
         full = {k: list(v.shape) for k, v in one.params.items()}
         src = video if model == "vtt" else rows
-        for _, rules in (x for x in SPLIT_CASES if x[0] == model):
+        for _, rules in (x for x in cases if x[0] == model):
             key = f"{model}_{rules}"
             r0 = reports[0][key]
-            want = _split_want(one.params, rules)
+            want = _split_want(one.params, rules, world)
             shapes = {k: v for k, v in r0["shard_shapes"].items()
                       if v != full[k]}
             errs, ms = {}, {}
@@ -3524,7 +3627,8 @@ def phase_split_serve_path(work: Path) -> dict:
                 ref = one.predict(*args)
                 got = served[0][f"{key}_{n}"]
                 errs[str(n)] = _rel_err(got, ref)
-                if not np.array_equal(got, served[1][f"{key}_{n}"]):
+                if any(not np.array_equal(got, s[f"{key}_{n}"])
+                       for s in served[1:]):
                     bad.append(f"{key}_{n}: ranks differ")
                 times = []
                 for _ in range(SPLIT_REPS):
@@ -3533,7 +3637,7 @@ def phase_split_serve_path(work: Path) -> dict:
                     times.append((time.perf_counter() - t0) * 1e3)
                 ms[str(n)] = sorted(times)[len(times) // 2]
             halved = all(
-                k in shapes and shapes[k][d] * 2 == full[k][d]
+                k in shapes and shapes[k][d] * world == full[k][d]
                 for k, d in want.items()) and set(shapes) == set(want)
             out["cases"][key] = {
                 "split_leaves": {k: [full[k], shapes.get(k)] for k in want},
@@ -3548,7 +3652,7 @@ def phase_split_serve_path(work: Path) -> dict:
         del one
         _free_card()
     out["phase_seconds"] = time.perf_counter() - t_phase
-    emit("split_serve_path", **out)
+    emit(name, **out)
     if bad or out["fused_readout_launches"]:
         raise AssertionError(f"split serving: {bad}, {out}")
     return out
@@ -3894,11 +3998,963 @@ def phase_etl_main_path(work: Path) -> dict:
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# --cards 4: the multi-rank paths, one rank a card, over NCCL
+# ---------------------------------------------------------------------------
+
+CARDS = 4
+MC_LAUNCH_TIMEOUT = 420
+MC_WINDOWS = 3                # staged timing windows on the ranks
+MC_EPOCHS_TIMED = 3           # staged epochs a window on 4 ranks x 16 rows:
+                              # 2 steps an epoch of the 160-trial fixture
+MC_ONE_CARD_EPOCHS = {BATCH: 2, CARDS * BATCH: 3}   # 16 and 6 steps a window
+MC_GATHER_REPS = 6            # timed factor gathers (the first dropped)
+MC_SSL_FIRST, MC_SSL_MAX = 20, 30
+MC_SSL_VALIDATE_EVERY = 10
+MC_CLEAN_LAUNCHES, MC_CLEAN_AT_ONCE = 16, 8
+# the plain launch's process-group timeout, and what a peer may take beyond
+# it to be ended: NCCL's watchdog aborts a timed-out rank ~70 s after the
+# timeout (89.5 s after a raise at a 20 s timeout on 4 H100s)
+MC_EXIT_TIMEOUT_S, MC_EXIT_SLACK_S = 20, 90
+MC_LAUNCHER_BOUND_S = 30      # torchrun stops a raising rank's peers within
+MC_SPLIT_CASES = SPLIT_CASES + (("vtt", "vtt"),)
+DCN_EID = "dcntrain00"
+
+# every rank: the kernel phase on its own card (the library the parent
+# built, loaded by each process; the launch plan on each card's SM count)
+MC_KERNEL_CHILD = r"""
+import json, sys
+import torch
+from chip_smoke import card_report, phase_kernel
+from video_spike_torch.core.runtime import exit_rank, setup_runtime
+from video_spike_torch.ops import cuda_lib
+from video_spike_torch.ops import fused_readout as fr
+
+cfg = json.loads(sys.argv[1])
+prebuilt = cuda_lib.lib_path(fr._SOURCE).exists()
+assert setup_runtime("cuda")
+out = {"card": card_report(), "library_prebuilt": prebuilt,
+       "sm_count": fr._sm_count(torch.cuda.current_device()),
+       "kernel": phase_kernel()}
+with open(f"{cfg['out']}{out['card']['rank']}.json", "w") as f:
+    json.dump(out, f)
+exit_rank()
+"""
+
+# every rank: one fused step of the trainer cfg["argv"] builds, from its
+# seeded init, on this rank's block of cfg["rows"] seeded rows; rank 0
+# saves W
+_FIRST_STEP = r"""
+def first_step(argv, rows, out):
+    trainer = train_cli.build_trainer(get_args(argv))
+    trainer._init_if_needed()
+    p = {k: v.clone() for k, v in trainer.params.items()}
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    m = p[fr.FIRST_KERNEL].shape[0]
+    x = torch.randint(0, 256, (rows, m), generator=g, device="cuda",
+                      dtype=torch.uint8)
+    ap = torch.poisson(torch.full((rows, 100, cfg["neurons"]), 0.5,
+                                  device="cuda"), generator=g)
+    rank, world = mh.process_index(), mh.process_count()
+    b = rows // world
+    n0 = fr.apply_scaled_outer.launches
+    p1, _, loss = trainer._step_fn(
+        p, fr.init_fused_opt_state(p, trainer.tx),
+        x[rank * b:(rank + 1) * b], ap[rank * b:(rank + 1) * b], rows, 0)
+    w = p1[fr.FIRST_KERNEL]
+    if rank == 0:
+        torch.save(w.cpu(), f"{out}_w.pt")
+    return {"loss": float(loss), "launches": fr.apply_scaled_outer.launches
+            - n0, "w_checksums": mh.replica_checksums(
+                {"w": w}, dist.group.WORLD)}
+"""
+
+_MC_IMPORTS = r"""
+import gc, json, sys, time
+import torch
+import torch.distributed as dist
+from chip_smoke import card_report
+from video_spike_torch.cli import train as train_cli
+from video_spike_torch.core.cli import get_args
+from video_spike_torch.core.runtime import exit_rank, setup_runtime
+from video_spike_torch.ops import fused_readout as fr
+from video_spike_torch.parallel import multihost as mh
+cfg = json.loads(sys.argv[1])
+"""
+
+# every rank: the same first step, alone (the four gloo ranks on card 0)
+MC_FIRST_STEP_CHILD = _MC_IMPORTS + _FIRST_STEP + r"""
+assert setup_runtime("cuda")
+out = {"card": card_report(),
+       "first": first_step(cfg["argv"], cfg["rows"], cfg["out"])}
+with open(f"{cfg['out']}{mh.process_index()}.json", "w") as f:
+    json.dump(out, f)
+exit_rank()
+"""
+
+# every rank: cli.train 2 epochs streamed, --resume to 3 (the kernel's B at
+# every launch), the first step, staged ms/step, the factor gather alone
+MC_DP_CHILD = _MC_IMPORTS + _CHILD_TIMING + _FIRST_STEP + r"""
+assert setup_runtime("cuda")
+batches, _launch = [], fr._launch_cuda
+
+
+def recording_launch(w, xa, dzc, seed):
+    batches.append(int(xa.shape[0]))
+    return _launch(w, xa, dzc, seed)
+
+
+fr._launch_cuda = recording_launch
+torch.cuda.reset_peak_memory_stats()
+fr.apply_scaled_outer.launches = 0
+res = train_cli.main(cfg["argv"] + ["--num_epochs", "2"])
+launches, kernel_batches = fr.apply_scaled_outer.launches, list(batches)
+peak_gb = torch.cuda.max_memory_allocated() / 1e9
+batches.clear()
+fr.apply_scaled_outer.launches = 0
+res2 = train_cli.main(cfg["argv"] + ["--num_epochs", "3", "--resume"])
+resume_launches, resume_batches = fr.apply_scaled_outer.launches, batches
+fr._launch_cuda = _launch
+gc.collect()
+torch.cuda.empty_cache()
+first = first_step(cfg["timing_argv"], cfg["rows"], cfg["out"])
+gc.collect()
+torch.cuda.empty_cache()
+trainer = train_cli.build_trainer(get_args(cfg["timing_argv"]))
+ms = staged_ms(trainer, cfg["windows"], cfg["epochs"], mh.barrier)
+flat_dtype = trainer.model.compute_dtype
+del trainer
+gc.collect()
+torch.cuda.empty_cache()
+b = cfg["rows"] // mh.process_count()
+flat = torch.zeros((b, cfg["m"]), dtype=flat_dtype, device="cuda")
+dz = torch.zeros((b, cfg["n"]), dtype=torch.float32, device="cuda")
+gather_ms = []
+for i in range(cfg["gather_reps"]):
+    mh.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mh.gather_rows(flat, dist.group.WORLD)
+    mh.gather_rows(dz, dist.group.WORLD)
+    torch.cuda.synchronize()
+    if i:
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
+out = {"card": card_report(), "train_losses": res["train_losses"],
+       "steps": res["global_step"], "launches": launches,
+       "kernel_batches": kernel_batches,
+       "replica_checksums": res["replica_checksums"],
+       "resume_start_epoch": res2["start_epoch"],
+       "resume_steps": res2["global_step"] - res["global_step"],
+       "resume_launches": resume_launches, "resume_batches": resume_batches,
+       "resume_replica_checksums": res2["replica_checksums"],
+       "test": res["test_res"], "log_dir": res["log_dir"],
+       "peak_mem_gb": peak_gb, "first": first, "ms_per_step_windows": ms,
+       "gather_ms": gather_ms,
+       "factor_bytes": {"sent": flat.numel() * flat.element_size()
+                        + dz.numel() * 4,
+                        "gathered": mh.process_count() * (
+                            flat.numel() * flat.element_size()
+                            + dz.numel() * 4)}}
+with open(f"{cfg['out']}{mh.process_index()}.json", "w") as f:
+    json.dump(out, f)
+exit_rank()
+"""
+
+# every rank: SSL pretraining through pretrain.main(data=) to cfg
+# ["first_steps"], then --resume to cfg["max_steps"]; the replicas'
+# checksums after each; the lr each trainer built; staged ms/step
+MC_SSL_CHILD = r"""
+import gc, json, os, pickle, sys
+from pathlib import Path
+import torch
+import torch.distributed as dist
+from chip_smoke import card_report, ssl_args, ssl_staged_trainer
+from video_spike_torch.cli import pretrain
+from video_spike_torch.core.runtime import exit_rank, setup_runtime
+from video_spike_torch.ops import fused_readout as fr
+from video_spike_torch.parallel import multihost as mh
+from video_spike_torch.train import contrast
+
+cfg = json.loads(sys.argv[1])
+assert setup_runtime("cuda")
+run = Path(cfg["run"])
+os.chdir(run)
+with open(run / "data.pkl", "rb") as f:
+    data = pickle.load(f)
+trainers, lrs = [], []
+_make, _adamw = pretrain.make_contrast_trainer, contrast.AdamW
+
+
+def make(*args, **kwargs):
+    t = _make(*args, **kwargs)
+    if not trainers:                # the first run stops at first_steps
+        t.max_steps = cfg["first_steps"]
+    trainers.append(t)
+    return t
+
+
+def adamw(lr, **kwargs):
+    lrs.append(lr)
+    return _adamw(lr, **kwargs)
+
+
+pretrain.make_contrast_trainer, contrast.AdamW = make, adamw
+argv = ssl_args(run, "mc_logs", cfg["max_steps"]) + [
+    "--validate_every", str(cfg["validate_every"])]
+fr.apply_scaled_outer.launches = 0
+res = pretrain.main(argv, data=data)
+sums = [mh.replica_checksums(trainers[0].params, dist.group.WORLD)]
+res2 = pretrain.main(argv + ["--resume"], data=data)
+sums.append(mh.replica_checksums(trainers[1].params, dist.group.WORLD))
+launches = fr.apply_scaled_outer.launches
+grad_bytes = sum(v.numel() * v.element_size()
+                 for v in trainers[1].params.values())
+pretrain.make_contrast_trainer, contrast.AdamW = _make, _adamw
+del trainers
+gc.collect()
+torch.cuda.empty_cache()
+trainer, staged = ssl_staged_trainer(run, data, "mc_timing")
+for _ in range(3):
+    trainer._step_staged(staged, 0)
+ms = []
+for _ in range(cfg["windows"]):
+    mh.barrier()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(cfg["steps"]):
+        trainer._step_staged(staged, 0)
+    end.record()
+    torch.cuda.synchronize()
+    ms.append(start.elapsed_time(end) / cfg["steps"])
+out = {"card": card_report(), "lrs": lrs, "launches": launches,
+       "first": {k: res[k] for k in ("train_losses", "steps", "start_step",
+                                     "val_history", "n_params")},
+       "resumed": {k: res2[k] for k in ("train_losses", "steps",
+                                        "start_step", "val_history")},
+       "replica_checksums": sums, "grad_bytes_per_step": grad_bytes,
+       "ms_per_step_windows": ms,
+       "artifact": os.path.exists(res["path"]), "path": res["path"]}
+with open(run / f"mc_ssl{mh.process_index()}.json", "w") as f:
+    json.dump(out, f)
+exit_rank()
+"""
+
+# every rank: collectives over the world and over the mesh's model groups
+# (every rank creates every line's group), then leave through run_rank; with
+# "raise" rank 1 raises while its peers wait in a collective
+MC_EXIT_CHILD = r"""
+import json, sys, threading, time
+import torch
+import torch.distributed as dist
+from chip_smoke import card_report
+from video_spike_torch.core.device import resolve_device
+from video_spike_torch.core.runtime import run_rank, setup_runtime
+from video_spike_torch.parallel.mesh import make_mesh
+
+
+def thread_cards():
+    # where a thread this process starts puts a "cuda" tensor, and one on
+    # the resolved device
+    dev, seen = resolve_device("cuda"), {}
+
+    def probe():
+        seen["bare"] = torch.zeros(1, device="cuda").device.index
+        seen["resolved"] = torch.zeros(1, device=dev).device.index
+
+    t = threading.Thread(target=probe)
+    t.start()
+    t.join()
+    return seen
+
+
+def main():
+    assert setup_runtime("cuda")
+    r = dist.get_rank()
+    t = torch.full((4,), r + 1.0, device="cuda")
+    dist.all_reduce(t)
+    mesh = make_mesh(n_data=2, n_model=2)
+    u = torch.full((3,), float(r), device="cuda")
+    dist.all_reduce(u, group=mesh.group("model"))
+    if sys.argv[1] == "raise":
+        if r == 1:
+            print(f"pid={r} raising_at={time.time()!r}", flush=True)
+            raise ValueError("rank 1 fails on purpose")
+        dist.all_reduce(t)        # waits for a peer that has left
+    print(f"pid={r} result=" + json.dumps(
+        {"t": t.tolist(), "u": u.tolist(), "card": card_report(),
+         "thread_cards": thread_cards()}), flush=True)
+
+
+run_rank(main)
+"""
+
+
+def _rank_results(text: str, world: int) -> list:
+    """Each rank's ``pid=<rank> result={...}`` object from a launch's
+    output."""
+    import re
+
+    found = []
+    for pid in range(world):
+        m = re.search(rf"pid={pid} result=\{{", text)
+        if not m:
+            raise AssertionError(f"no result from rank {pid}:\n"
+                                 f"{text[-4000:]}")
+        found.append(json.JSONDecoder().raw_decode(text, m.end() - 1)[0])
+    return found
+
+
+def _launch_cmd(*args) -> list:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc_per_node={CARDS}", *args]
+
+
+def _ranks_json(base: Path, world: int = CARDS) -> list:
+    return [json.loads(Path(f"{base}{r}.json").read_text())
+            for r in range(world)]
+
+
+def phase_mc_cards() -> dict:
+    """Every card's name, power limit and PCI bus id as ``nvidia-smi``
+    reports them, and the links between the cards (``nvidia-smi topo
+    -m``)."""
+    def smi(*args, check=True):
+        p = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                           text=True, check=check, timeout=60)
+        return (p.stdout + p.stderr).rstrip().splitlines()
+
+    out = {"nvidia_smi": smi("--query-gpu=name,power.limit",
+                             "--format=csv,noheader"),
+           "cards": smi("--query-gpu=index,name,power.limit,pci.bus_id",
+                        "--format=csv,noheader"),
+           # the links between the cards (NVLink or PCIe), where the
+           # host's nvidia-smi reports them
+           "topo": smi("topo", "-m", check=False)}
+    emit("mc_cards", **out)
+    return out
+
+
+def phase_mc_kernel() -> dict:
+    """The kernel phase on each card at once (one rank a card): bitwise on
+    exact sums, within tolerance on random inputs, timed at the Linear,
+    probe and B = 64 shapes; each rank loads the library the parent built
+    and plans on its own card's SM count."""
+    with tempfile.TemporaryDirectory(prefix="vst_mc_kernel_") as tmp:
+        base = Path(tmp) / "kernel"
+        seconds = _torchrun(MC_KERNEL_CHILD, CARDS, {"out": str(base)},
+                            timeout=MC_LAUNCH_TIMEOUT)
+        ranks = _ranks_json(base)
+    check_cards([r["card"] for r in ranks], CARDS)
+    if not all(r["library_prebuilt"] for r in ranks):
+        raise AssertionError("a rank built the kernel library itself")
+    kernel = dict(ranks[0]["kernel"])
+    kernel["max_abs_err"] = max(r["kernel"]["max_abs_err"] for r in ranks)
+    kernel["by_card"] = [
+        {"card": r["card"]["name"], "pci_bus_id": r["card"]["pci_bus_id"],
+         "sm_count": r["sm_count"], "linear_ms": r["kernel"]["ms"],
+         "plain_ms": r["kernel"]["plain_ms"],
+         "probe_ms": r["kernel"]["probe"]["ms"],
+         "b64_ms": r["kernel"]["b64"]["ms"],
+         "max_abs_err": r["kernel"]["max_abs_err"]} for r in ranks]
+    emit("mc_kernel", by_card=kernel["by_card"], launch_seconds=seconds)
+    return kernel
+
+
+def phase_mc_fixtures(work: Path) -> dict:
+    """The 160-trial Linear fixture, the five VTT sessions and a VTT
+    ``model_best`` (one epoch on card 0), the SSL session's features (kept
+    in memory and pickled for the ranks) and the small fixture of the
+    trainer smokes."""
+    import pickle
+
+    import torch
+
+    from video_spike_torch.cli import make_fixture
+    from video_spike_torch.cli import train as train_cli
+    from video_spike_torch.data.synthetic import make_synthetic_session
+
+    t0 = time.perf_counter()
+    make_fixture.main(["--out", str(work / "stream_data"), "--eid",
+                       STREAM_EID, "--n_trials", str(STREAM_TRIALS),
+                       "--n_neurons", str(N_NEURONS),
+                       "--height", str(HEIGHT), "--width", str(WIDTH)])
+    vtt_fixture(work / "vtt_data")
+    res = train_cli.main(vtt_args(work, "vtt_logs") + ["--num_epochs", "1"])
+    torch.cuda.synchronize()
+    data = ssl_data(work / "ssl")
+    with open(work / "ssl" / "data.pkl", "wb") as f:
+        pickle.dump(data, f)
+    del data
+    make_synthetic_session(work / "dcn_fix", eid=DCN_EID, n_trials=16,
+                           n_neurons=5, seed=31, height=32, width=32)
+    _free_card()
+    out = {"seconds": time.perf_counter() - t0,
+           "vtt_train_losses": res["train_losses"]}
+    emit("mc_fixtures", **out)
+    return out
+
+
+
+def phase_mc_one_card(work: Path) -> dict:
+    """One card's staged production Linear step on the 160-trial fixture at
+    16 rows and at 64 rows (the 4-card step's local and global batch), in
+    this process on card 0, while the other cards idle."""
+    from video_spike_torch.cli import train as train_cli
+    from video_spike_torch.core.cli import get_args
+
+    out = {}
+    for rows, epochs in MC_ONE_CARD_EPOCHS.items():
+        args = _stream_args(work, _train_yaml(work), f"mc_one{rows}")
+        args[args.index("--batch_size") + 1] = str(rows)
+        trainer = train_cli.build_trainer(get_args(args))
+        windows, _ = staged_window_ms(trainer, epochs)
+        del trainer
+        _free_card()
+        out[str(rows)] = {"ms_per_step": statistics.median(windows),
+                          "ms_per_step_windows": windows}
+    emit("mc_one_card", **out)
+    return out
+
+
+def phase_mc_dp_linear(work: Path, one_card: dict) -> dict:
+    """(a) The production Linear at full width through ``cli.train`` on 4
+    NCCL ranks, 16 rows each (the kernel on the gathered 64), streamed
+    from the 160-trial fixture, 2 epochs then ``--resume`` to 3: a launch a
+    step on every rank, each at B = 64; the replicas' checksums equal every
+    epoch; rank 0 the only writer. Then the first step on seeded rows from
+    the seeded init, whose W must be bitwise that of the same step on 4
+    gloo ranks sharing card 0 (the factors reach the kernel by all-gather,
+    a copy); the staged ms/step against one card's 16- and 64-row steps;
+    the factor gather's bytes and ms; each card's peak memory."""
+    import torch
+
+    rows = CARDS * BATCH
+    cli_yaml = _variant_yaml(work, "mc_stream", PRODUCTION_OPTIMIZER,
+                             {"device_cache": False, "save_every": 1})
+    timing_argv = _stream_args(work, _train_yaml(work), "mc_dp_timing")
+    seconds = _torchrun(MC_DP_CHILD, CARDS, {
+        "argv": _stream_args(work, cli_yaml, "mc_dp_logs"),
+        "timing_argv": timing_argv, "rows": rows, "neurons": N_NEURONS,
+        "windows": MC_WINDOWS, "epochs": MC_EPOCHS_TIMED,
+        "m": KERNEL_M, "n": KERNEL_N, "gather_reps": MC_GATHER_REPS,
+        "out": str(work / "mc_dp")}, timeout=MC_LAUNCH_TIMEOUT)
+    ranks = _ranks_json(work / "mc_dp")
+    cards = [r["card"] for r in ranks]
+    check_cards(cards, CARDS)
+    gloo_s = _torchrun(MC_FIRST_STEP_CHILD, CARDS, {
+        "argv": _stream_args(work, _train_yaml(work), "mc_gloo_timing"),
+        "rows": rows, "neurons": N_NEURONS, "out": str(work / "mc_gloo")},
+        env={"VST_DIST_BACKEND": "gloo", "CUDA_VISIBLE_DEVICES": "0"},
+        timeout=MC_LAUNCH_TIMEOUT)
+    gloo = _ranks_json(work / "mc_gloo")
+    r0, bad = ranks[0], []
+    for key in ("train_losses", "steps", "replica_checksums", "test",
+                "resume_replica_checksums"):
+        if any(r[key] != r0[key] for r in ranks):
+            bad.append(f"ranks differ in {key}: {[r[key] for r in ranks]}")
+    for r in ranks:
+        if r["steps"] == 0 or r["launches"] != r["steps"] \
+                or r["kernel_batches"] != [rows] * r["steps"] \
+                or r["resume_steps"] == 0 \
+                or r["resume_launches"] != r["resume_steps"] \
+                or r["resume_batches"] != [rows] * r["resume_steps"] \
+                or r["resume_start_epoch"] != 2 \
+                or r["first"]["launches"] != 1:
+            bad.append(f"rank {r['card']['rank']}: launches "
+                       f"{r['launches']} at B {r['kernel_batches']}, steps "
+                       f"{r['steps']}; resume {r['resume_launches']} at B "
+                       f"{r['resume_batches']}, steps {r['resume_steps']} "
+                       f"from epoch {r['resume_start_epoch']}")
+    if len(r0["replica_checksums"]) != 2 \
+            or len(r0["resume_replica_checksums"]) != 1 \
+            or not all(math.isfinite(v) for v in r0["train_losses"]):
+        bad.append(f"want a finite loss and a checksum an epoch: {r0}")
+    run_dir = Path(r0["log_dir"])
+    written = sorted(p.name for p in run_dir.iterdir())
+    if written != ["metrics.jsonl", "model_best.pt", "model_last.pt",
+                   "test_results.npy"]:
+        bad.append(f"rank-0 artifacts: {written}")
+    w_nccl = torch.load(work / "mc_dp_w.pt", weights_only=True)
+    w_gloo = torch.load(work / "mc_gloo_w.pt", weights_only=True)
+    differ = (w_nccl.view(torch.int16) != w_gloo.view(torch.int16)).any(1)
+    first_rows = differ.nonzero().flatten()[:10].tolist()
+    del w_nccl, w_gloo
+    first = {"nccl": r0["first"], "gloo": gloo[0]["first"],
+             "w_bitwise": not first_rows, "rows_differ": int(differ.sum()),
+             "first_differing_rows": first_rows}
+    for run in ([r["first"] for r in ranks], [g["first"] for g in gloo]):
+        if len(set(run[0]["w_checksums"])) != 1 \
+                or any(x["w_checksums"] != run[0]["w_checksums"]
+                       for x in run):
+            bad.append(f"first-step replicas differ: {run}")
+    if any(g["card"]["backend"] != "gloo" or g["card"]["current_device"]
+           for g in gloo):
+        bad.append(f"the gloo run is not 4 ranks on card 0: "
+                   f"{[g['card'] for g in gloo]}")
+    if first_rows:
+        bad.append(f"W after the first step differs from the 4-gloo-rank "
+                   f"run in {first['rows_differ']} rows, first "
+                   f"{first_rows}")
+    ms = statistics.median(x for r in ranks
+                           for x in r["ms_per_step_windows"])
+    out = {"world": CARDS, "backend": "nccl", "local_batch": BATCH,
+           "global_batch": rows, "cards": cards,
+           "train_losses": r0["train_losses"], "steps_per_rank": r0["steps"],
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "launches": sum(r["launches"] for r in ranks),
+           "resume_launches": sum(r["resume_launches"] for r in ranks),
+           "kernel_batches": r0["kernel_batches"],
+           "replica_checksums": r0["replica_checksums"]
+           + r0["resume_replica_checksums"],
+           "test": r0["test"], "rank0_artifacts": written,
+           "first_step": first, "ms_per_step": ms,
+           "ms_per_step_windows": [r["ms_per_step_windows"] for r in ranks],
+           "one_card_ms_per_step": one_card,
+           "factor_bytes_per_step": r0["factor_bytes"],
+           "gather_ms": statistics.median(x for r in ranks
+                                          for x in r["gather_ms"]),
+           "gather_ms_by_rank": [r["gather_ms"] for r in ranks],
+           "peak_mem_gb_by_card": [r["peak_mem_gb"] for r in ranks],
+           "launch_seconds": {"nccl": seconds, "gloo_first_step": gloo_s}}
+    out["gather_gb_per_s"] = (r0["factor_bytes"]["gathered"]
+                              - r0["factor_bytes"]["sent"]) \
+        / out["gather_ms"] / 1e6
+    emit("mc_dp_linear", **out)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+def phase_mc_model_axis_linear(work: Path) -> dict:
+    """(b) ``cli.train`` on the full-width Linear with ``training.mesh:
+    {data: 2, model: 2}`` over 4 NCCL ranks (16 rows a data row), 2 epochs
+    then ``--resume`` to 3: the checks of ``_tp_linear`` (the ranks agree,
+    a launch a step, a checksum an epoch, rank 0 the only writer), and W
+    after the 2 epochs bitwise that of ``{data: 2, model: 1}`` on 2 NCCL
+    ranks (cards 0 and 1), both streamed: a model-axis replica of a data
+    row computes what that row's rank computes."""
+    # both streamed: a model axis refuses the rank-local trial cache
+    mesh_yaml = _variant_yaml(work, "mc_model_axis", PRODUCTION_OPTIMIZER,
+                              training={"mesh": {"data": 2, "model": 2},
+                                        "device_cache": False})
+    ref_yaml = _variant_yaml(work, "mc_model_axis_ref", PRODUCTION_OPTIMIZER,
+                             training={"mesh": {"data": 2, "model": 1},
+                                       "device_cache": False})
+    seconds = _torchrun(TP_LINEAR_CHILD, CARDS, {
+        "argv": _stream_args(work, mesh_yaml, "mc_tp_logs"),
+        "out": str(work / "mc_tp")}, timeout=MC_LAUNCH_TIMEOUT)
+    ref_s = _torchrun(TP_LINEAR_CHILD, 2, {
+        "argv": _stream_args(work, ref_yaml, "mc_tp_ref_logs"),
+        "out": str(work / "mc_tp_ref"), "resume": False},
+        timeout=MC_LAUNCH_TIMEOUT)
+    ranks = _ranks_json(work / "mc_tp")
+    ref = _ranks_json(work / "mc_tp_ref", 2)[0]
+    check_cards([r["card"] for r in ranks], CARDS)
+    r0, bad = ranks[0], []
+    for key in ("train_losses", "steps", "replica_checksums", "test",
+                "resume_replica_checksums"):
+        if any(r[key] != r0[key] for r in ranks):
+            bad.append(f"ranks differ in {key}: {[r[key] for r in ranks]}")
+    written = sorted(p.name for p in Path(r0["log_dir"]).iterdir())
+    if written != ["metrics.jsonl", "model_best.pt", "model_last.pt",
+                   "test_results.npy"]:
+        bad.append(f"rank-0 artifacts: {written}")
+    for r in ranks:
+        if r["backend"] != "nccl" or r["world"] != CARDS \
+                or r["steps"] != ref["steps"] or r["steps"] == 0 \
+                or r["launches"] != r["steps"] \
+                or r["resume_launches"] != r["resume_steps"] \
+                or 2 * r["resume_steps"] != r["steps"] \
+                or r["resume_start_epoch"] != 2:
+            bad.append(f"model-axis rank {r['rank']}: {r}")
+    if len(r0["replica_checksums"]) != 2 \
+            or len(r0["resume_replica_checksums"]) != 1 \
+            or not all(math.isfinite(v) for v in r0["train_losses"]):
+        bad.append(f"model-axis run: {r0}")
+    out = {"mesh": {"data": 2, "model": 2}, "world": CARDS,
+           "backend": "nccl", "batch_per_data_row": BATCH,
+           "train_losses": r0["train_losses"],
+           "data_only_losses": ref["train_losses"],
+           "steps_per_rank": r0["steps"],
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "launches": sum(r["launches"] for r in ranks),
+           "resume_launches": sum(r["resume_launches"] for r in ranks),
+           "replica_checksums": r0["replica_checksums"]
+           + r0["resume_replica_checksums"],
+           "w_bitwise_data_only": r0["w_digest"] == ref["w_digest"],
+           "w_digest": r0["w_digest"], "data_only_w_digest":
+           ref["w_digest"], "test": r0["test"],
+           "cards": [r["card"] for r in ranks],
+           "launch_seconds": {"mesh": seconds, "data_only": ref_s}}
+    if not out["w_bitwise_data_only"] \
+            or ref["train_losses"] != r0["train_losses"]:
+        bad.append("W or the losses differ from {data: 2, model: 1}")
+    emit("mc_model_axis_linear", **out)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+def phase_mc_tensor_vtt(work: Path) -> dict:
+    """(c) The tensor-sharded VTT at full width on {data: 2, model: 2}, 4
+    NCCL ranks, 3 steps in f32 and bf16 against the unsplit step on card 0
+    (``_tp_vtt``'s bounds), ms/step and bytes a step."""
+    out = _tp_vtt(work, "nccl")
+    emit("mc_tensor_vtt", **out)
+    return out
+
+
+def phase_mc_ssl(work: Path) -> dict:
+    """(e) ContrastViTMAE pretraining data-parallel on 4 NCCL ranks × 128
+    triplets through ``pretrain.main(..., data=)``: stopped at step 20,
+    then ``--resume`` to 30; the replicas' checksums equal after each, the
+    losses finite, the lr 4 × the recipe's, rank 0 the only writer of the
+    embeddings; staged ms/step against one card's in this call and the
+    gradient bytes all-reduced a step."""
+    import pickle
+
+    import yaml
+
+    run = work / "ssl"
+    with open(run / "data.pkl", "rb") as f:
+        data = pickle.load(f)
+    one = ssl_step_ms(work, data)
+    del data
+    _free_card()
+    seconds = _torchrun(MC_SSL_CHILD, CARDS, {
+        "run": str(run), "first_steps": MC_SSL_FIRST,
+        "max_steps": MC_SSL_MAX, "validate_every": MC_SSL_VALIDATE_EVERY,
+        "windows": MC_WINDOWS, "steps": SSL_STEPS},
+        timeout=MC_LAUNCH_TIMEOUT)
+    ranks = [json.loads((run / f"mc_ssl{r}.json").read_text())
+             for r in range(CARDS)]
+    check_cards([r["card"] for r in ranks], CARDS)
+    lr = yaml.safe_load((ROOT / "configs/train/vmae_video.yaml")
+                        .read_text())["optimizer"]["lr"]
+    r0, bad = ranks[0], []
+    losses = r0["first"]["train_losses"] + r0["resumed"]["train_losses"]
+    for r in ranks:
+        sums = r["replica_checksums"]
+        if any(len(set(s)) != 1 for s in sums) or sums != r0["replica_checksums"]:
+            bad.append(f"replicas differ: {sums}")
+        if r["lrs"] != [CARDS * lr] * 2:
+            bad.append(f"rank {r['card']['rank']} lr {r['lrs']}, want "
+                       f"{CARDS} x {lr}")
+        if r["first"]["steps"] != MC_SSL_FIRST \
+                or r["resumed"]["start_step"] != MC_SSL_FIRST \
+                or r["resumed"]["steps"] != MC_SSL_MAX - MC_SSL_FIRST:
+            bad.append(f"rank {r['card']['rank']} steps: {r['first']}, "
+                       f"{r['resumed']}")
+    if not losses or not all(math.isfinite(v) for v in losses):
+        bad.append(f"losses {losses}")
+    if [r["artifact"] for r in ranks] != [True] * CARDS:
+        bad.append("the embeddings were not written")
+    ms = statistics.median(x for r in ranks for x in r["ms_per_step_windows"])
+    out = {"world": CARDS, "backend": "nccl", "batch_triplets_per_rank":
+           SSL_BATCH, "n_params": r0["first"]["n_params"],
+           "losses": losses, "val": r0["first"]["val_history"]
+           + r0["resumed"]["val_history"], "lr": r0["lrs"][0],
+           "recipe_lr": lr, "replica_checksums": r0["replica_checksums"],
+           "ms_per_step": ms,
+           "ms_per_step_windows": [r["ms_per_step_windows"] for r in ranks],
+           "one_card": one,
+           "grad_bytes_all_reduced_per_step": r0["grad_bytes_per_step"],
+           "cards": [r["card"] for r in ranks], "launch_seconds": seconds,
+           "launches": sum(r["launches"] for r in ranks)}
+    emit("mc_ssl", **out)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _raise_plain(work: Path) -> dict:
+    """Four ranks started as plain processes (no launcher watching them),
+    rank 1 raising while its peers wait in a collective: each rank's exit
+    code and the seconds from the raise to its exit (None: still running
+    at the deadline, then killed)."""
+    import os
+    import re
+
+    port = _free_port()
+    procs, logs = [], []
+    t_start = time.time()
+    for r in range(CARDS):
+        log = open(work / f"mc_raise_plain{r}.log", "w")
+        env = {**os.environ, "PYTHONPATH": str(ROOT), "RANK": str(r),
+               "LOCAL_RANK": str(r), "WORLD_SIZE": str(CARDS),
+               "LOCAL_WORLD_SIZE": str(CARDS), "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(port),
+               "VST_DIST_TIMEOUT": str(MC_EXIT_TIMEOUT_S)}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", MC_EXIT_CHILD, "raise"], env=env,
+            stdout=log, stderr=subprocess.STDOUT))
+        logs.append(log)
+    ended = [None] * CARDS
+    # start-up, then the bound
+    deadline = t_start + 60 + MC_EXIT_TIMEOUT_S + MC_EXIT_SLACK_S
+    while None in ended and time.time() < deadline:
+        for r, p in enumerate(procs):
+            if ended[r] is None and p.poll() is not None:
+                ended[r] = time.time()
+        time.sleep(0.05)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for log in logs:
+        log.close()
+    text = "".join((work / f"mc_raise_plain{r}.log").read_text()
+                   for r in range(CARDS))
+    m = re.search(r"pid=1 raising_at=([0-9.]+)", text)
+    if not m:
+        raise AssertionError(f"rank 1 did not reach its raise:\n"
+                             f"{text[-4000:]}")
+    raised_at = float(m.group(1))
+    return {"rcs": [p.returncode if e else None
+                    for p, e in zip(procs, ended)],
+            "seconds_after_raise": [None if e is None else e - raised_at
+                                    for e in ended],
+            "traceback": "ValueError: rank 1 fails on purpose" in text,
+            "tail": text[-1500:]}
+
+
+def phase_mc_rank_exits(work: Path) -> dict:
+    """(f) Rank exits under NCCL: MC_CLEAN_LAUNCHES clean 4-rank launches
+    (MC_CLEAN_AT_ONCE at a time) exit rc 0 with every rank's results, each
+    rank on its own card, and a thread each rank starts puts a tensor on
+    the resolved device on that card; a raising rank under ``torchrun``
+    exits 1 and the
+    launch (its peers stopped by the launcher) ends within
+    MC_LAUNCHER_BOUND_S of the raise; started as plain processes with
+    ``VST_DIST_TIMEOUT`` = MC_EXIT_TIMEOUT_S, the raising rank exits 1 and
+    its peers exit non-zero within MC_EXIT_TIMEOUT_S + MC_EXIT_SLACK_S of
+    the raise (the process group's timeout, not NCCL's ten minutes)."""
+    import os
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+
+    def launch(mode):
+        t0 = time.time()
+        p = subprocess.run(_launch_cmd("--no-python", sys.executable, "-c",
+                                       MC_EXIT_CHILD, mode),
+                           env=env, capture_output=True, text=True,
+                           timeout=MC_LAUNCH_TIMEOUT)
+        return p.returncode, p.stdout + p.stderr, t0, time.time()
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(MC_CLEAN_AT_ONCE) as pool:
+        clean = list(pool.map(launch, ["clean"] * MC_CLEAN_LAUNCHES))
+    clean_s = time.perf_counter() - t0
+    bad, thread_cards = [], []
+    for i, (rc, text, _, _) in enumerate(clean):
+        if rc != 0:
+            bad.append(f"clean launch {i}: rc {rc}\n{text[-2000:]}")
+            continue
+        res = _rank_results(text, CARDS)
+        try:
+            check_cards([r["card"] for r in res], CARDS)
+        except AssertionError as e:
+            bad.append(f"clean launch {i}: {e}")
+        if any(r["t"] != [10.0] * 4 for r in res) \
+                or [r["u"] for r in res] != [[1.0] * 3] * 2 + [[5.0] * 3] * 2:
+            bad.append(f"clean launch {i}: collectives {res}")
+        if any(r["thread_cards"]["resolved"] != r["card"]["current_device"]
+               for r in res):
+            bad.append(f"clean launch {i}: a thread's tensor on the resolved "
+                       f"device left the rank's card: {res}")
+        thread_cards.append([r["thread_cards"] for r in res])
+    rc, text, _, end = launch("raise")
+    m = re.search(r"pid=1 raising_at=([0-9.]+)", text)
+    launcher = {"rc": rc, "rank1_exitcode_1": "exitcode  : 1 " in text,
+                "traceback": "ValueError: rank 1 fails on purpose" in text,
+                "seconds_after_raise": (end - float(m.group(1))) if m
+                else None, "bound_s": MC_LAUNCHER_BOUND_S}
+    if rc == 0 or not launcher["rank1_exitcode_1"] \
+            or not launcher["traceback"] \
+            or launcher["seconds_after_raise"] is None \
+            or launcher["seconds_after_raise"] > MC_LAUNCHER_BOUND_S:
+        bad.append(f"raise under torchrun: {launcher}\n{text[-3000:]}")
+    plain = _raise_plain(work)
+    plain["bound_s"] = MC_EXIT_TIMEOUT_S + MC_EXIT_SLACK_S
+    peers = [plain["seconds_after_raise"][r] for r in (0, 2, 3)]
+    if plain["rcs"][1] != 1 or any(plain["rcs"][r] in (0, None)
+                                   for r in (0, 2, 3)) \
+            or any(s is None or s > plain["bound_s"] for s in peers) \
+            or not plain["traceback"]:
+        bad.append(f"raise without a launcher: {plain}")
+    out = {"clean_launches": MC_CLEAN_LAUNCHES,
+           "clean_rc0": sum(rc == 0 for rc, _, _, _ in clean),
+           "clean_seconds": clean_s,
+           "clean_launch_seconds": [e - s for _, _, s, e in clean],
+           "thread_cards_first_launch": thread_cards[:1],
+           "raise_under_torchrun": launcher,
+           "raise_plain": {k: v for k, v in plain.items() if k != "tail"}}
+    emit("mc_rank_exits", **out)
+    if bad:
+        raise AssertionError("\n".join(bad))
+    return out
+
+
+def phase_mc_dcn_smokes(work: Path) -> dict:
+    """``parallel/dcn_smoke`` and ``parallel/dcn_trainer_smoke`` (the
+    Linear ``BaseTrainer``, and ``DCN_MODE=tensor`` on {data: 2, model:
+    2}) as they are, on 4 NCCL ranks: every rank prints the same
+    numbers."""
+    import os
+
+    runs = {
+        "dcn_smoke": ("video_spike_torch.parallel.dcn_smoke", {},
+                      "global_loss"),
+        "trainer_linear": ("video_spike_torch.parallel.dcn_trainer_smoke",
+                           {"DCN_FIXTURE_DIR": str(work / "dcn_fix"),
+                            "DCN_EID": DCN_EID,
+                            "DCN_LOG_DIR": str(work / "dcn_logs")},
+                           "result"),
+        "trainer_tensor": ("video_spike_torch.parallel.dcn_trainer_smoke",
+                           {"DCN_MODE": "tensor", "DCN_MODEL_AXIS": "2",
+                            "DCN_LOG_DIR": str(work / "dcn_tensor_logs")},
+                           "result")}
+    out, bad = {}, []
+    for name, (module, extra, key) in runs.items():
+        t0 = time.perf_counter()
+        p = subprocess.run(_launch_cmd("-m", module),
+                           env={**os.environ, "PYTHONPATH": str(ROOT),
+                                **extra}, cwd=ROOT, capture_output=True,
+                           text=True, timeout=MC_LAUNCH_TIMEOUT)
+        text = p.stdout + p.stderr
+        if p.returncode != 0:
+            bad.append(f"{name}: rc {p.returncode}\n{text[-3000:]}")
+            continue
+        if key == "result":
+            got = _rank_results(text, CARDS)
+        else:
+            import re
+
+            got = [re.search(rf"pid={r} global_loss=(\S+)", text).group(1)
+                   for r in range(CARDS)]
+        if any(g != got[0] for g in got):
+            bad.append(f"{name}: ranks differ: {got}")
+        out[name] = {"rank0": got[0], "seconds": time.perf_counter() - t0}
+    emit("mc_dcn_smokes", **out)
+    if bad:
+        raise AssertionError("\n".join(bad))
+    return out
+
+
+def main_cards(cards: int) -> int:
+    """``--cards 4``: every multi-rank path with one rank a card over NCCL
+    (see the module's docstring). Needs `cards` visible cards; runs every
+    phase, then fails when any did, printing no result."""
+    import os
+    import traceback
+
+    import torch
+
+    if cards != CARDS:
+        print(f"chip_smoke.py: --cards takes {CARDS} (or leave it out for "
+              f"the one-card run), not {cards}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke.py --cards: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    count = torch.cuda.device_count()
+    if count < cards:
+        print(f"chip_smoke.py --cards {cards}: {count} card(s) visible; "
+              f"this run needs {cards}, one rank a card over NCCL",
+              file=sys.stderr)
+        return 2
+    os.environ.pop("VST_DIST_BACKEND", None)
+    sys.path.insert(0, str(ROOT))
+    t_run = time.perf_counter()
+    phase_build()
+    failed, done = {}, {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            done[name] = fn(*args)
+        except Exception:                  # noqa: BLE001  (reported below)
+            failed[name] = traceback.format_exc()[-8000:]
+            emit(name, failed=True, error=failed[name])
+        print(json.dumps({"phase_seconds": {name: time.perf_counter()
+                                            - t0}}), flush=True)
+
+    run("mc_cards", phase_mc_cards)
+    run("mc_kernel", phase_mc_kernel)
+    with tempfile.TemporaryDirectory(prefix="vst_cards_") as tmp:
+        work = Path(tmp)
+        run("mc_fixtures", phase_mc_fixtures, work)
+        run("mc_one_card", phase_mc_one_card, work)
+        run("mc_dp_linear", phase_mc_dp_linear, work,
+            done.get("mc_one_card"))
+        run("mc_model_axis_linear", phase_mc_model_axis_linear, work)
+        run("mc_tensor_vtt", phase_mc_tensor_vtt, work)
+        run("mc_split_serve", phase_split_serve_path, work, CARDS, "nccl",
+            MC_SPLIT_CASES, ("stream_data", STREAM_EID, "mc_dp_logs"),
+            "mc_split_serve")
+        run("mc_ssl", phase_mc_ssl, work)
+        run("mc_rank_exits", phase_mc_rank_exits, work)
+        run("mc_dcn_smokes", phase_mc_dcn_smokes, work)
+    print(json.dumps({"run_seconds": time.perf_counter() - t_run}),
+          flush=True)
+    if failed:
+        print(f"chip_smoke.py --cards {cards}: failed phases "
+              f"{sorted(failed)}", file=sys.stderr)
+        return 1
+    kernel = done["mc_kernel"]
+    dp, tp = done["mc_dp_linear"], done["mc_model_axis_linear"]
+    kernel["launches"] = (dp["launches"] + dp["resume_launches"]
+                          + tp["launches"] + tp["resume_launches"])
+    kernel["launches_by_path"] = {
+        "dp4_nccl": dp["launches"], "dp4_nccl_resume": dp["resume_launches"],
+        "dp4_nccl_b": dp["kernel_batches"][0],
+        "model_axis_2x2_nccl": tp["launches"],
+        "model_axis_2x2_nccl_resume": tp["resume_launches"],
+        "tensor_vtt_nccl": done["mc_tensor_vtt"]["launches"],
+        "split_serve_nccl": done["mc_split_serve"]["fused_readout_launches"],
+        "ssl_nccl": done["mc_ssl"]["launches"]}
+    if any(kernel["launches_by_path"][p] for p in (
+            "tensor_vtt_nccl", "split_serve_nccl", "ssl_nccl")):
+        raise AssertionError(f"the fused readout ran on the tensor-sharded "
+                             f"VTT, split serving or SSL: "
+                             f"{kernel['launches_by_path']}")
+    for line in done["mc_cards"]["nvidia_smi"]:
+        print(line, flush=True)
+    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": cards}}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the port on "
+                                     "one card, or on four (--cards 4).")
+    parser.add_argument("--cards", type=int, default=None,
+                        help="run the multi-rank paths with one NCCL rank "
+                        "a card on this many cards (4)")
+    args = parser.parse_args(argv)
     if not (ROOT / "video_spike_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(video_spike_torch/ not found beside it)", file=sys.stderr)
         return 2
+    if args.cards is not None:
+        return main_cards(args.cards)
     import torch
 
     if not torch.cuda.is_available():

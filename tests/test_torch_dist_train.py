@@ -395,3 +395,79 @@ def test_cli_train_two_ranks(linear_fixture, tmp_path):
                (run_dir / "metrics.jsonl").read_text().splitlines()]
     assert [r["step"] for r in records] == [3, 6]
     assert all("replica_checksum" in r for r in records)
+
+
+PRETRAIN_RANK = r"""
+import json, os, pickle, sys
+import numpy as np
+import torch
+from video_spike_torch.cli import pretrain
+from video_spike_torch.core.runtime import exit_rank
+from video_spike_torch.parallel import multihost as mh
+
+torch.set_num_threads(1)
+os.chdir(sys.argv[1])
+writes, _save = [], np.save
+
+
+def save(path, *args, **kwargs):
+    writes.append(str(path))
+    return _save(path, *args, **kwargs)
+
+
+np.save = save
+with open("data.pkl", "rb") as f:
+    data = pickle.load(f)
+res = pretrain.main(sys.argv[2:], data=data)
+print(f"pid={mh.process_index()} result="
+      f"{json.dumps({'writes': writes, 'path': res['path']})}", flush=True)
+exit_rank()
+"""
+PRETRAIN_EID = "dcnpre000"
+
+
+def test_pretrain_cli_two_ranks_rank0_alone_writes_embeddings(tmp_path):
+    """``cli.pretrain`` on 2 gloo ranks writes
+    ``data/data_rrr_<model>_<eid5>.npy`` from rank 0 alone, as the JAX CLI
+    does (``video_spike_tpu/cli/pretrain.py:113``): every rank embeds, one
+    writes. Before, both ranks wrote the same file (2 writes a launch)."""
+    import pickle
+
+    import yaml
+
+    from video_spike_torch.cli import create_eid_data
+    from video_spike_torch.data.synthetic import make_synthetic_session
+
+    make_synthetic_session(tmp_path / "fx", eid=PRETRAIN_EID, n_trials=12,
+                           n_neurons=6, seed=3, height=32, width=32)
+    (tmp_path / "data").mkdir()
+    (tmp_path / "data/eid.txt").write_text(f"{PRETRAIN_EID}\n")
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        _, raw = create_eid_data.build([
+            "--model_config", str(REPO / "configs/model/linear_me.yaml"),
+            "--train_config", str(REPO / "configs/train/rrr.yaml"),
+            "--input_mod", "whisker-video", "--data_dir",
+            str(tmp_path / "fx")])
+    finally:
+        os.chdir(cwd)
+    with open(tmp_path / "data.pkl", "wb") as f:
+        pickle.dump(create_eid_data.split_dict(raw), f)
+    tiny = dict(model_class="ViT_MAE", image_size=32, patch_size=8,
+                num_channels=1, hidden_size=32, num_hidden_layers=1,
+                num_attention_heads=4, intermediate_size=64,
+                decoder_hidden_size=32, decoder_num_hidden_layers=1,
+                decoder_num_attention_heads=4, decoder_intermediate_size=64,
+                mask_ratio=0.75, norm_pix_loss=False, embed_size=3)
+    (tmp_path / "tiny.yaml").write_text(yaml.safe_dump(tiny))
+    outs = _wait(torch_code(PRETRAIN_RANK, _env(), args=(
+        tmp_path, "--model_config", tmp_path / "tiny.yaml",
+        "--train_config", REPO / "configs/train/vmae_video.yaml",
+        "--eid", PRETRAIN_EID, "--model", "cm", "--max_steps", "2",
+        "--batch_size", "4", "--log_dir", "logs", "--device", "cpu")))
+    r0, r1 = results(outs)
+    path = f"data/data_rrr_cm_{PRETRAIN_EID[:5]}.npy"
+    assert (r0["writes"], r1["writes"]) == ([path], []), (r0, r1)
+    saved = np.load(tmp_path / path, allow_pickle=True).item()
+    assert saved[PRETRAIN_EID]["X"][0].shape[-1] == tiny["embed_size"]

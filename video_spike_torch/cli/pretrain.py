@@ -13,7 +13,8 @@ Flow: contrast loaders (pretrain triplets; per-trial train/val loaders),
 the model from the registry via the short-name map (c/cm/m) on the device,
 AdamW with the yaml's constant lr, the step-based fit with nested-RRR
 validation, then embed train + test with the best checkpoint and save
-``data/data_rrr_<model>_<eid5>.npy``.
+``data/data_rrr_<model>_<eid5>.npy`` (rank 0 alone under a process
+group).
 
 One addition to the JAX package's interface: ``main(argv, data=...)`` takes
 the split dict of ``cli/create_eid_data.split_dict`` in place of the h5 (for
@@ -37,6 +38,7 @@ from video_spike_torch.core.registry import NAME2MODEL
 from video_spike_torch.core.rng import set_seed
 from video_spike_torch.core.runtime import run_rank, setup_runtime
 from video_spike_torch.data.contrast import make_contrast_loader
+from video_spike_torch.parallel import multihost as mh
 from video_spike_torch.train.contrast import make_contrast_trainer
 
 MODEL_SHORTNAMES = {"c": "ContrastViT", "cm": "ContrastViTMAE", "m": "MAE"}
@@ -129,9 +131,12 @@ def main(argv=None, h5_path: str | None = None, data=None):
                       "y": [train_neural, test_neural],
                       "setup": {}}}
     path = f"data/data_rrr_{args.model}_{args.eid[:5]}.npy"
-    os.makedirs("data", exist_ok=True)
-    np.save(path, out)
-    log.info(f"saved {path}")
+    # every rank embeds (the transform is collective); rank 0 alone writes
+    # the artifact: concurrent writers to one .npy can tear it
+    if mh.process_index() == 0:
+        os.makedirs("data", exist_ok=True)
+        np.save(path, out)
+        log.info(f"saved {path}")
     return {"path": path, "n_params": trainer.n_params,
             "train_losses": list(trainer.train_losses),
             "val_history": list(trainer.val_history),

@@ -35,9 +35,9 @@ def main() -> None:
     from video_spike_torch.parallel import multihost as mh
 
     torch.set_num_threads(1)
-    device = resolve_device(
-        "cpu" if os.environ.get("DCN_SMOKE_FORCE_CPU") else "cuda")
-    setup_runtime(device)
+    kind = "cpu" if os.environ.get("DCN_SMOKE_FORCE_CPU") else "cuda"
+    setup_runtime(kind)              # sets this rank's card first
+    device = resolve_device(kind)
     pid, nproc = mh.process_index(), mh.process_count()
     say(f"pid={pid} process_count={nproc} local_devices=1 "
         f"global_devices={nproc}")

@@ -44,10 +44,14 @@ from video_spike_torch.parallel.dcn_smoke import say
 
 
 def _device():
+    """The run's device, after ``setup_runtime`` has set this rank's
+    card."""
     from video_spike_torch.core.device import resolve_device
+    from video_spike_torch.core.runtime import setup_runtime
 
-    return resolve_device(
-        "cpu" if os.environ.get("DCN_SMOKE_FORCE_CPU") else "cuda")
+    kind = "cpu" if os.environ.get("DCN_SMOKE_FORCE_CPU") else "cuda"
+    setup_runtime(kind)
+    return resolve_device(kind)
 
 
 def _load_init(trainer) -> None:
@@ -70,12 +74,10 @@ def _load_init(trainer) -> None:
 def main() -> None:
     import torch
 
-    from video_spike_torch.core.runtime import setup_runtime
     from video_spike_torch.parallel import multihost as mh
 
     torch.set_num_threads(1)
     device = _device()
-    setup_runtime(device)
     pid = mh.process_index()
     log_dir = os.environ["DCN_LOG_DIR"]
     eid = os.environ.get("DCN_EID", "dcntrain00")

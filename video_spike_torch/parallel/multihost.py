@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from video_spike_torch.core import runtime
 from video_spike_torch.parallel.mesh import grid_shape
 
 
@@ -60,7 +61,7 @@ def barrier() -> None:
     """Every rank waits here for the others (rank 0's checkpoint is on disk
     before any rank reads it)."""
     if is_multihost():
-        dist.barrier()
+        runtime.barrier()
 
 
 def shard_files_for_process(files: Sequence[str], n_model: int = 1,
