@@ -30,9 +30,13 @@ Builds a trainer through ``video_spike_torch.cli.train`` at full width, as
 It warms up, then runs ``torch.profiler`` (CPU + CUDA activities) over
 ``--steps`` staged steps. Prints one JSON line: wall ms/step (with the
 profiler on), the summed device time of every kernel per step, the
-device's busy share (kernel time / wall time), kernel launches per step,
-and the top kernels and operators by device time (each as
-[name, ms/step, calls/step]). The
+device's busy share (the union of every kernel, copy and memset interval,
+streams that overlap counted once, over wall time), kernel launches per
+step, host ms a step in each of the program's ``vs.*`` spans
+(``video_spike_torch/core/spans.py``: ``vs.step`` and, inside it,
+``vs.forward``, ``vs.backward``, ``vs.optimizer``, ...; whole durations,
+children included), and the top kernels and operators by device time
+(each as [name, ms/step, calls/step]). The
 full table and a gzipped Chrome trace go to ``--out`` (default ``profile_out/``,
 git-ignored). Needs one CUDA card.
 """
@@ -51,6 +55,36 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
+def device_busy_s(prof) -> float:
+    """Seconds in which any kernel, copy or memset ran: the union of their
+    intervals, so streams that overlap count once. A host range
+    (``record_function``) mirrored on the device track is left out: its
+    name is also a host event's."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    host = {e.name() for e in events if e.device_type() != DeviceType.CUDA}
+    acts = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in events if e.device_type() == DeviceType.CUDA
+                  and e.name() not in host)
+    busy, reach = 0, float("-inf")
+    for s, e in acts:            # by start: count what passes the reach
+        if e > reach:
+            busy += e - max(s, reach)
+            reach = e
+    return 1e-9 * busy
+
+
+def span_ms(prof, units: int) -> dict:
+    """Host ms a ``unit`` in each ``vs.*`` span of the profiled window,
+    children included: the profiler's own rows of the spans' ranges."""
+    from torch.autograd import DeviceType
+
+    return {e.key: e.cpu_time_total / 1e3 / units
+            for e in sorted(prof.key_averages(), key=lambda e: e.key)
+            if e.device_type == DeviceType.CPU and e.key.startswith("vs.")}
+
+
 def summarize(prof, wall: float, units: int, unit: str,
               out=None) -> dict:
     """Per ``unit`` (step or trial) of a profiled window: wall ms (profiler
@@ -63,9 +97,11 @@ def summarize(prof, wall: float, units: int, unit: str,
     self_attr = ("self_device_time_total"
                  if hasattr(events[0], "self_device_time_total")
                  else "self_cuda_time_total")
-    # kernel rows only: an operator row repeats the time of its kernels
+    host = {e.key for e in events if e.device_type == DeviceType.CPU}
+    # kernel rows only: an operator row repeats the time of its kernels,
+    # and a host range (a vs.* span) mirrored on the device track is none
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and getattr(e, self_attr) > 0]
+               and getattr(e, self_attr) > 0 and e.key not in host]
     ops = [e for e in events if e.device_type == DeviceType.CPU
            and getattr(e, self_attr) > 0]
     device_us = sum(getattr(e, self_attr) for e in kernels)
@@ -87,7 +123,7 @@ def summarize(prof, wall: float, units: int, unit: str,
         raw.unlink()
     return {f"wall_ms_per_{unit}": wall * 1e3 / units,
             f"device_ms_per_{unit}": device_us / 1e3 / units,
-            "device_busy_share": device_us / 1e6 / wall,
+            "device_busy_share": device_busy_s(prof) / wall,
             f"kernel_launches_per_{unit}":
                 sum(e.count for e in kernels) / units,
             "top_kernels": top(kernels), "top_ops": top(ops)}
@@ -215,6 +251,7 @@ def main() -> int:
             encode = summarize(eprof, ewall, 2 * video.shape[0], "trial")
     print(json.dumps({"model": args.model, "steps": steps,
                       **summarize(prof, wall, steps, "step", out),
+                      "host_ms_per_step": span_ms(prof, steps),
                       **({"encode": encode} if encode else {}),
                       "card": chip_smoke.nvidia_smi_line()}))
     return 0

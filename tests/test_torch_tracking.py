@@ -2,7 +2,8 @@
 ``core/tracking.Tracker`` (``metrics.jsonl`` records, the wandb mirror
 through a recording stand-in module, as ``tests/test_tracking_wandb.py``
 does, since wandb is not installed), both packages' ``BaseTrainer`` writing
-``metrics.jsonl``, and the ``profiling.*`` hook on the streaming epoch.
+``metrics.jsonl``, and the port's ``profiling.*`` hook on the streaming and
+the cached epoch.
 
 Inputs are made with numpy from a seed and fed to both packages.
 Tolerances: tracker records equal but for ``t`` (the clock) and the log
@@ -158,8 +159,8 @@ def test_trainers_write_the_same_metrics(session, tmp_path):  # noqa: F811
 def test_profiler_hook_traces_the_streaming_epoch(session, tmp_path,  # noqa
                                                   cached):
     """profiling: {enable, dir, steps} traces `steps` steps once
-    global_step > 2 on the streaming epoch (one trace for the run); the
-    cached epoch is not traced, as in the JAX trainer."""
+    global_step > 2 on the streaming epoch and on the cached one alike (one
+    trace for the run), and the trace holds a `vs.step` range a step."""
     from video_spike_torch.core import config as tconfig
     from video_spike_torch.data import dataset as tdata
     from video_spike_torch.models.linear import LinearModel as TLinear
@@ -190,12 +191,10 @@ def test_profiler_hook_traces_the_streaming_epoch(session, tmp_path,  # noqa
     for _ in range(3):
         trainer.train_epoch()
     assert trainer.global_step == 6
-    if cached:
-        assert trainer._dev_data is not None and not trace_dir.exists()
-        return
-    assert trainer._dev_data is None
+    assert (trainer._dev_data is not None) == cached
     assert trainer.trace_paths == [str(trace_dir / "trace_steps3-4.json")]
     trace = json.loads((trace_dir / "trace_steps3-4.json").read_text())
-    names = {e.get("name", "") for e in trace["traceEvents"]}
+    names = [e.get("name", "") for e in trace["traceEvents"]]
     assert any("addmm" in n or "mm" in n for n in names)
+    assert names.count("vs.step") == 1            # global steps 3 to 4
     assert os.listdir(trace_dir) == ["trace_steps3-4.json"]

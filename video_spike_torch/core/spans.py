@@ -1,0 +1,97 @@
+"""Named host spans inside the training step and the input pipeline, on
+the profiler's clock.
+
+``span(name)`` is a context manager. It records only while a
+``torch.profiler`` records in this process; there is no other switch:
+
+- off, it returns one shared no-op object made at import: no allocation,
+  no clock read, no profiler range;
+- on, it opens a profiler range named ``"vs." + name``, so every chrome
+  trace the profiler writes shows it, and keeps
+  ``Span(name, thread, start_ns, end_ns)`` in a ring of the newest ``CAP``
+  spans. Times are ``time.time_ns()``, the clock the profiler's events
+  carry, read just before the range opens and closes, so the device
+  trace's idle gaps can be put down to the span the host was in. Spans on
+  one thread nest, so a reader finds a span's children by their
+  intervals.
+
+A profiler started on one thread does not see the ranges opened on
+another, but the ring keeps every thread's spans while the process
+traces. ``recorded()`` returns a copy of the ring and ``clear()`` empties
+it.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import NamedTuple
+
+import torch.autograd.profiler as _profiler
+# the range ``torch.profiler.record_function`` opens, entered from C: the
+# clock read and the profiler's own are one call apart, with nothing
+# allocated between them that the garbage collector tracks, so no
+# collection can fall between the two and move the span off its range
+from torch._C._profiler import _RecordFunctionFast as _Range
+
+PREFIX = "vs."
+CAP = 100_000
+
+
+class Span(NamedTuple):
+    name: str
+    thread: int
+    start_ns: int
+    end_ns: int
+
+
+_RING: collections.deque = collections.deque(maxlen=CAP)
+
+
+class _Off:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+OFF = _Off()
+
+
+class _On:
+    __slots__ = ("name", "range", "start")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.range = _Range(PREFIX + name)
+
+    def __enter__(self):
+        self.start = time.time_ns()
+        self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        self.range.__exit__(*exc)
+        _RING.append(Span(self.name, threading.get_ident(), self.start, end))
+        return False
+
+
+def span(name: str):
+    """A span named ``name`` while a profiler records, else ``OFF``."""
+    if not _profiler._is_profiler_enabled:
+        return OFF
+    return _On(name)
+
+
+def recorded() -> list:
+    """The spans in the ring, oldest first (a copy)."""
+    return list(_RING)
+
+
+def clear() -> None:
+    _RING.clear()

@@ -4,7 +4,8 @@ double-buffered copy to the card.
 Counterpart of ``video_spike_tpu/data/prefetch.py``:
 
 - ``background`` runs an iterable on a producer thread with a small queue
-  of readahead while the consumer runs the train step on the card;
+  of readahead while the consumer runs the train step on the card; the
+  consumer's wait for the next item is the ``producer_wait`` span;
 - ``device_put_batch`` moves a batch dict's arrays to a device (strings
   stay on the host);
 - ``prefetch_to_device`` decodes and stages batches ``depth`` ahead. On a
@@ -27,6 +28,8 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+
+from video_spike_torch.core.spans import span
 
 _SENTINEL = object()
 
@@ -72,7 +75,8 @@ def background(iterable: Iterable, depth: int = 2) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("producer_wait"):
+                item = q.get()
             if item is _SENTINEL:
                 if err:
                     raise err[0]

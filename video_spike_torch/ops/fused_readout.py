@@ -44,6 +44,7 @@ from typing import Mapping, NamedTuple
 import numpy as np
 import torch
 
+from video_spike_torch.core.spans import span
 from video_spike_torch.ops.optim import MASK32, mix_bits, seed_key
 from video_spike_torch.parallel.multihost import (
     gather_rows,
@@ -456,29 +457,40 @@ def make_fused_linear_step(model, tx_rest, schedule, criterion,
     on ``z_nob`` through the tail, as ``jax.value_and_grad(argnums=(0, 1))``
     gives it in the JAX package. With a data ``group``, ``inputs`` and
     ``ap`` are this rank's rows and ``n_valid`` the global valid-row count.
+    The phases are ``core/spans``' ``forward``, ``backward``,
+    ``grad_allreduce`` (with a group) and ``optimizer``, which holds the
+    kernel's call.
     """
 
     def step(params, opt_state, inputs, ap, n_valid, seed):
         fstate, rest_state = opt_state
         kernel, rest = split_first_kernel(params)
-        with torch.no_grad():
-            flat = preprocess_flat(model, inputs)
-            z_nob = flat @ kernel.to(model.compute_dtype)       # (B, N)
-        z_nob.requires_grad_(True)
-        leaves = {k: v.detach().requires_grad_(True) for k, v in rest.items()}
-        b1 = leaves[FIRST_BIAS]
-        out = tail_apply(model, leaves, z_nob + b1.to(z_nob.dtype))
-        loss = criterion(out, ap, n_valid)
+        with span("forward"):
+            with torch.no_grad():
+                flat = preprocess_flat(model, inputs)
+                z_nob = flat @ kernel.to(model.compute_dtype)   # (B, N)
+            z_nob.requires_grad_(True)
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in rest.items()}
+            b1 = leaves[FIRST_BIAS]
+            out = tail_apply(model, leaves, z_nob + b1.to(z_nob.dtype))
+            loss = criterion(out, ap, n_valid)
         names = list(leaves)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in names] + [z_nob])
+        with span("backward"):
+            grads = torch.autograd.grad(
+                loss, [leaves[k] for k in names] + [z_nob])
         with torch.no_grad():
-            g_rest, loss = sum_grads_and_loss(dict(zip(names, grads[:-1])),
-                                        loss.detach(), group)
-            flat, dz = gather_rows(flat, group), gather_rows(grads[-1], group)
-            upd, rest_state = tx_rest.update(g_rest, rest_state, rest)
-            rest = apply_updates_rest(rest, upd, seed)
-            kernel, fstate = fused_readout_update(
-                kernel, flat, dz, fstate, schedule, seed=seed)
+            g_rest, dz = dict(zip(names, grads[:-1])), grads[-1]
+            loss = loss.detach()
+            if group is not None:
+                with span("grad_allreduce"):
+                    g_rest, loss = sum_grads_and_loss(g_rest, loss, group)
+                    flat, dz = gather_rows(flat, group), gather_rows(dz, group)
+            with span("optimizer"):
+                upd, rest_state = tx_rest.update(g_rest, rest_state, rest)
+                rest = apply_updates_rest(rest, upd, seed)
+                kernel, fstate = fused_readout_update(
+                    kernel, flat, dz, fstate, schedule, seed=seed)
         return (merge_first_kernel(rest, kernel), (fstate, rest_state), loss)
 
     return step

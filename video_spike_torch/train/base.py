@@ -45,9 +45,12 @@ Counterpart of ``video_spike_tpu/train/base.py:BaseTrainer`` on one device
   wandb mirrored under ``wandb.use``); ``save_plot`` writes
   ``best_trial_<tag>.png`` and ``best_neuron_<tag>.png`` at each new best
   epoch and for the test split; ``profiling: {enable, dir, steps}`` traces
-  ``steps`` steps of the streaming epoch once ``global_step > 2`` with
-  ``torch.profiler`` into ``dir`` (the cached epoch is not traced, as in
-  the JAX trainer);
+  ``steps`` steps of the staged or streaming epoch once ``global_step > 2``
+  with ``torch.profiler`` into ``dir``, once a run and on rank 0 only; the
+  trace holds the ``vs.*`` ranges of ``core/spans``: ``vs.step`` around
+  each step, within it ``vs.forward``, ``vs.backward``,
+  ``vs.grad_allreduce`` (under a process group) and ``vs.optimizer``, and
+  on the streaming epoch ``vs.producer_wait`` between steps;
 - under a process group (``torch.distributed.run``; ``core/runtime``) the
   ranks train data-parallel on the mesh's ``data`` axis
   (``training.mesh``, default every rank on ``data``): each rank streams
@@ -89,6 +92,7 @@ import torch
 
 from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
+from video_spike_torch.core.spans import span
 from video_spike_torch.core.tracking import Tracker
 from video_spike_torch.data.dataset import input_modalities
 from video_spike_torch.data.prefetch import prefetch_to_device
@@ -240,8 +244,11 @@ class BaseTrainer:
             use_wandb=bool(wandb_cfg.get("use", False)),
             config=config.to_plain() if hasattr(config, "to_plain") else None)
         prof = config.get("profiling", {}) or {}
-        self._profile_dir = prof.get("dir") if prof.get("enable") else None
+        self._profile_dir = (prof.get("dir")
+                             if prof.get("enable") and self._is_main
+                             else None)
         self._profile_steps = prof.get("steps", 10)
+        self._prof = None
         self.trace_paths: list = []
 
     # ------------------------------------------------------------------
@@ -375,29 +382,41 @@ class BaseTrainer:
         group = self._dp_group
 
         def train_step(params, opt_state, inputs, ap, n_valid, seed):
-            leaves = {k: v.detach().requires_grad_(True)
-                      for k, v in params.items() if not is_frozen(k, frozen)}
-            out = apply({**params, **leaves}, inputs)
-            loss = criterion(out, ap, n_valid)
+            with span("forward"):
+                leaves = {k: v.detach().requires_grad_(True)
+                          for k, v in params.items()
+                          if not is_frozen(k, frozen)}
+                out = apply({**params, **leaves}, inputs)
+                loss = criterion(out, ap, n_valid)
             names = list(leaves)
-            grads = dict(zip(names, torch.autograd.grad(
-                loss, [leaves[k] for k in names])))
+            with span("backward"):
+                grads = dict(zip(names, torch.autograd.grad(
+                    loss, [leaves[k] for k in names])))
             with torch.no_grad():
-                grads, loss = mh.sum_grads_and_loss(grads, loss.detach(),
-                                                    group)
-                trained = {k: params[k] for k in names}
-                updates, opt_state = tx.update(grads, opt_state, trained)
-                params = {**params, **apply_fn(trained, updates, seed)}
+                loss = loss.detach()
+                if group is not None:
+                    with span("grad_allreduce"):
+                        grads, loss = mh.sum_grads_and_loss(grads, loss,
+                                                            group)
+                with span("optimizer"):
+                    trained = {k: params[k] for k in names}
+                    updates, opt_state = tx.update(grads, opt_state, trained)
+                    params = {**params, **apply_fn(trained, updates, seed)}
             return params, opt_state, loss
 
         return train_step
 
     def _step(self, inputs, ap, n_valid, step_fn=None) -> torch.Tensor:
-        params, self.opt_state, loss = (step_fn or self._step_fn)(
-            self.params, self.opt_state, inputs, ap, n_valid,
-            self.global_step & MASK32)
-        self._set_params(params)
+        if self._profile_dir and self._prof is None and self.global_step > 2:
+            self._start_profiler()
+        with span("step"):
+            params, self.opt_state, loss = (step_fn or self._step_fn)(
+                self.params, self.opt_state, inputs, ap, n_valid,
+                self.global_step & MASK32)
+            self._set_params(params)
         self.global_step += 1
+        if self._prof is not None and self.global_step >= self._profile_until:
+            self._stop_profiler(loss)
         return loss
 
     # ------------------------------------------------------------------
@@ -475,6 +494,8 @@ class BaseTrainer:
         return feats
 
     def _epoch_result(self, losses) -> dict:
+        if self._prof is not None:   # epoch shorter than the profile window
+            self._stop_profiler(losses[-1])
         loss_vals = torch.stack(losses).float().cpu().numpy()  # one sync
         mean = float(loss_vals.mean())
         self.train_losses.append(mean)
@@ -612,35 +633,27 @@ class BaseTrainer:
             return self._train_epoch_cached()
         self._init_if_needed()
         losses = []
-        prof = None
         for batch in prefetch_to_device(self.train_loader, self.device,
                                         depth=2, transform=self._host_batch):
             inputs, ap = batch["inputs"], batch["ap"]
-            if self._profile_dir and prof is None and self.global_step > 2:
-                prof = self._start_profiler()
-                profile_until = self.global_step + self._profile_steps
             losses.append(self._step(inputs, ap, inputs.shape[0]))
-            if prof is not None and self.global_step >= profile_until:
-                self._stop_profiler(prof, losses[-1])
-                prof = None
-        if prof is not None:   # epoch shorter than the profile window
-            self._stop_profiler(prof, losses[-1])
         return self._epoch_result(losses)
 
-    def _start_profiler(self):
+    def _start_profiler(self) -> None:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=activities)
-        prof.start()
+        self._prof = torch.profiler.profile(activities=activities)
+        self._prof.start()
         self._profile_from = self.global_step
-        return prof
+        self._profile_until = self.global_step + self._profile_steps
 
-    def _stop_profiler(self, prof, last_loss: torch.Tensor) -> None:
+    def _stop_profiler(self, last_loss: torch.Tensor) -> None:
         """Wait for the traced steps, stop, and write the chrome trace
         ``trace_steps<from>-<to>.json`` into ``profiling.dir``; the run
         traces once."""
         last_loss.item()
+        prof, self._prof = self._prof, None
         prof.stop()
         os.makedirs(self._profile_dir, exist_ok=True)
         path = os.path.join(self._profile_dir, f"trace_steps"

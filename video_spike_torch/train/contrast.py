@@ -38,7 +38,11 @@ Counterpart of ``video_spike_tpu/train/contrast.py`` (reference
 
 The step's losses (every 50 steps) and each validation go to
 ``<log_dir>/metrics.jsonl`` (``core/tracking``, the JAX trainer's keys and
-steps).
+steps). While a ``torch.profiler`` records, the step's phases are
+``core/spans``: ``vs.step`` (the frame-cache gather and the step) holding
+``vs.forward``, ``vs.backward``, ``vs.grad_allreduce`` (under a process
+group) and ``vs.optimizer``, with ``vs.producer_wait`` (the wait for the
+producer's next batch) between steps.
 
 Under a process group (``core/runtime``) the ranks train data-parallel on
 the mesh's ``data`` axis, with the JAX trainer's semantics:
@@ -77,6 +81,7 @@ import torch
 
 from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
+from video_spike_torch.core.spans import span
 from video_spike_torch.core.tracking import Tracker
 from video_spike_torch.data.contrast import device_frame_transform
 from video_spike_torch.data.prefetch import background
@@ -237,39 +242,45 @@ class ContrastTrainer:
         named = dict(self.model.named_parameters())
         gen = self._next_generator()
         size = self.image_size
-        if self._is_mae:
-            out = self._global_outputs(self.model(
-                device_frame_transform(trip, size), generator=gen))
-            loss, aux = self.criterion(out, None, None)["loss"], {}
-        else:
-            # (3, B, ...) -> (3B, ...): one large batch with the
-            # [all-ref | all-pos | all-neg] row layout
-            b = trip.shape[1]
-            x = device_frame_transform(trip.reshape(-1, *trip.shape[2:]),
-                                       size)
-            out = self.model(x, generator=gen)
-            ref, pos, neg = (self._global_outputs(
-                {k: v[i * b:(i + 1) * b] if v.ndim > 0 else v
-                 for k, v in out.items()}) for i in range(3))
-            loss_dict = self.criterion(ref, pos, neg)
-            loss = loss_dict["loss"]
-            aux = {k: v.detach() for k, v in loss_dict.items() if k != "loss"}
-            if "temp" in ref:
-                aux["temperature"] = ref["temp"].detach()
-        grads = torch.autograd.grad(loss, list(named.values()),
-                                    allow_unused=True)
-        # a parameter the loss does not reach (ContrastViT's mask_token,
-        # the fixed temperature) has a zero gradient, as under jax.grad;
-        # AdamW still decays it
-        grads = {k: g if g is not None else torch.zeros_like(p)
-                 for (k, p), g in zip(named.items(), grads)}
+        with span("forward"):
+            if self._is_mae:
+                out = self._global_outputs(self.model(
+                    device_frame_transform(trip, size), generator=gen))
+                loss, aux = self.criterion(out, None, None)["loss"], {}
+            else:
+                # (3, B, ...) -> (3B, ...): one large batch with the
+                # [all-ref | all-pos | all-neg] row layout
+                b = trip.shape[1]
+                x = device_frame_transform(
+                    trip.reshape(-1, *trip.shape[2:]), size)
+                out = self.model(x, generator=gen)
+                ref, pos, neg = (self._global_outputs(
+                    {k: v[i * b:(i + 1) * b] if v.ndim > 0 else v
+                     for k, v in out.items()}) for i in range(3))
+                loss_dict = self.criterion(ref, pos, neg)
+                loss = loss_dict["loss"]
+                aux = {k: v.detach() for k, v in loss_dict.items()
+                       if k != "loss"}
+                if "temp" in ref:
+                    aux["temperature"] = ref["temp"].detach()
+        with span("backward"):
+            grads = torch.autograd.grad(loss, list(named.values()),
+                                        allow_unused=True)
+            # a parameter the loss does not reach (ContrastViT's
+            # mask_token, the fixed temperature) has a zero gradient, as
+            # under jax.grad; AdamW still decays it
+            grads = {k: g if g is not None else torch.zeros_like(p)
+                     for (k, p), g in zip(named.items(), grads)}
         with torch.no_grad():
-            # each rank's gradient holds its own rows' share of the loss
-            grads = mh.sum_across(grads, self._dp_group)
-            params = self.params
-            updates, self.opt_state = self.tx.update(grads, self.opt_state,
-                                                     params)
-            self._set_params(apply_updates(params, updates))
+            if self._dp_group is not None:
+                # each rank's gradient holds its own rows' share of the loss
+                with span("grad_allreduce"):
+                    grads = mh.sum_across(grads, self._dp_group)
+            with span("optimizer"):
+                params = self.params
+                updates, self.opt_state = self.tx.update(
+                    grads, self.opt_state, params)
+                self._set_params(apply_updates(params, updates))
         return {"loss": loss.detach(), **aux}
 
     # ------------------------------------------------------------------
@@ -325,9 +336,10 @@ class ContrastTrainer:
     def _step_staged(self, staged: torch.Tensor, cur_step: int) -> Dict:
         """One train step on a producer-staged input: an index tensor when
         the frame cache is live, a device triplet otherwise."""
-        trip = (self._frame_cache[staged] if self._frame_cache is not None
-                else staged)
-        return {"cur_step": cur_step, **self._train_step(trip)}
+        with span("step"):
+            trip = (self._frame_cache[staged]
+                    if self._frame_cache is not None else staged)
+            return {"cur_step": cur_step, **self._train_step(trip)}
 
     def _epoch_batches(self, skip: int = 0, index: bool = False):
         """One pass over the pretrain loader; ``skip`` (mid-epoch resume)
