@@ -19,7 +19,8 @@ step on 4 gloo ranks sharing card 0; ms/step against one card's 16- and
 (c) the tensor-sharded VTT on {data: 2, model: 2} against the unsplit step;
 (d) the Linear and VTT ``model_best``s served split over model = 4, by
 rows and by columns; (e) SSL data-parallel, 4 ranks x 128 triplets through
-``pretrain.main(data=)``, 20 steps then a resume to 30; (f) 16 clean
+``pretrain.main(data=)``, 20 steps then a resume to 30, a fused AdamW
+launch a step on each rank; (f) 16 clean
 four-rank launches and a raising rank (under the launcher, and as plain
 processes ended by the process group's timeout); (g) the multi-process
 smokes of ``parallel/``. Every phase runs; the run fails after them if any
@@ -37,6 +38,11 @@ Phases of the one-card run, one JSON line each on stdout:
    Linear path's shape, at the probe head's (M = 1,204,224, N = 256, B =
    8) and at the gathered batch of 4 data-parallel ranks (B = 64); beside
    them the ``copy_ms`` yardstick (a bf16 (M, N) ``Tensor.copy_``);
+2b. fused_adamw: the multi-tensor AdamW kernel at the SSL model's 255 f32
+    leaves (111,002,116 elements): p, mu and nu bitwise the per-leaf
+    loop's on the card over 3 steps, one launch a step; timed beside its
+    bound (28 bytes an element), the per-leaf loop's time and device time,
+    and ``torch._fused_adamw_``'s time as a yardstick the port never calls;
 3. main_path: ``python -m video_spike_torch.cli.train`` (called in-process)
    trains the full-width Linear model on a synthetic 128x128 session in
    the production configuration (bf16 SR store, lean adafactor, fused
@@ -110,7 +116,8 @@ Phases of the one-card run, one JSON line each on stdout:
    ``cli.pretrain --resume`` to step 60 with two nested-RRR validations,
    then ``cli.test --model cm``; the first run's periodic ``last_model``
    flush at step 10 runs in the background, and the resume must read a
-   checkpoint whose step matches its sampler sidecar;
+   checkpoint whose step matches its sampler sidecar; the fused AdamW
+   launches once a step trained;
 9. ssl_card_vs_cpu: the ContrastViTMAE forward on the card (bf16 and f32)
    against the same weights in f32 on the CPU with the same mask noise, and
    ``device_frame_transform`` on the card against the CPU at 106×160 and
@@ -173,7 +180,8 @@ Phases of the one-card run, one JSON line each on stdout:
     lean Linear, streamed Linear, data-parallel Linear (2 and 4 ranks),
     model-axis Linear and probe paths; the accumulation, VTT,
     tensor-sharded VTT, RRR, SSL, pretraining, serving, split serving,
-    export, CEBRA and ETL paths must launch it 0 times);
+    export, CEBRA and ETL paths must launch it 0 times; the fused AdamW
+    runs on the SSL path);
 22. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure is an uncaught exception and a non-zero exit. Every rank of a
@@ -249,6 +257,7 @@ SSL_FLUSH_EVERY = 10         # a periodic last_model flush, in the background
 SSL_MAX_STEPS = 60           # the resumed run validates at 38 and 60
 SSL_STEPS = 10               # staged steps per timing window
 SSL_CARD_FRAMES = 4          # frames in the card-vs-CPU forward
+SSL_LR = 5e-5                # configs/train/vmae_video.yaml's
 # card vs CPU on z and the recon loss, max |card - cpu| / max |cpu|: a bf16
 # model rounds at ~0.5-0.8% (CPU bf16 against CPU f32 at full width: 0.53%
 # on z, 0.04% on the loss, 0.84% on z at mask 0); f32 differs by summation
@@ -575,6 +584,133 @@ def phase_kernel() -> dict:
          b64=wide, copy_yardstick=copy,
          launches_in_checks=fr.apply_scaled_outer.launches)
     return result
+
+
+def _ssl_leaves() -> dict:
+    """ContrastViTMAE's leaf shapes at ``configs/model/vit_mae/vit_mae.yaml``'s
+    widths (255 f32 leaves, 111,002,116 elements), read on the meta
+    device."""
+    import yaml
+
+    from video_spike_torch.models.vit_mae import ContrastViTMAE
+
+    cfg = yaml.safe_load((ROOT / "configs/model/vit_mae/vit_mae.yaml")
+                         .read_text())
+    model = ContrastViTMAE.from_config(cfg, device="meta")
+    return {k: tuple(p.shape) for k, p in model.named_parameters()}
+
+
+def phase_fused_adamw() -> dict:
+    """The multi-tensor AdamW at the SSL model's leaves: p, mu and nu
+    bitwise the per-leaf loop's on the card after each of 3 steps; then one
+    step timed (CUDA events, the median of REPS windows of 20 launches)
+    beside its bound (28 bytes an element at 3.35 TB/s); the per-leaf
+    loop's time a step (CUDA events over 5 steps, the host's dispatch
+    included) and the device time of its kernels (profiler); and
+    ``torch._fused_adamw_``'s time at the same leaves, a yardstick the port
+    never calls (torch's AdamW: the decay multiplies p first)."""
+    import torch
+
+    from video_spike_torch.ops import fused_adamw
+    from video_spike_torch.ops import optim as op
+
+    dev = torch.device("cuda")
+    shapes = _ssl_leaves()
+    n = sum(math.prod(s) for s in shapes.values())
+    if len(shapes) != 255 or n != SSL_PARAMS:
+        raise AssertionError(f"SSL leaves: {len(shapes)}, {n} elements")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    p = {k: 0.02 * torch.randn(s, generator=gen, device=dev)
+         for k, s in shapes.items()}
+    ref_p = {k: v.clone() for k, v in p.items()}
+    tx, ref_tx = (op.AdamW(SSL_LR, weight_decay=0.01, eps=1e-8)
+                  for _ in range(2))
+    state, ref_state = tx.init(p), ref_tx.init(ref_p)
+
+    def grads():
+        return {k: torch.randn(s, generator=gen, device=dev)
+                * 10.0 ** -(2 + i % 4) for i, (k, s) in
+                enumerate(shapes.items())}
+
+    launches0 = fused_adamw.step_.launches
+    unequal = []
+    for step in range(3):
+        g = grads()
+        upd, ref_state = ref_tx.update(g, ref_state, ref_p)
+        ref_p = op.apply_updates(ref_p, upd)
+        tx.step_(p, g, state)
+        torch.cuda.synchronize()
+        unequal += [(step, k) for k in shapes if not all(
+            torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for a, b in ((p[k], ref_p[k]), (state["mu"][k],
+                                            ref_state["mu"][k]),
+                         (state["nu"][k], ref_state["nu"][k])))]
+    check_launches = fused_adamw.step_.launches - launches0
+    del upd, ref_p, ref_state
+    torch.cuda.empty_cache()
+
+    g = grads()
+    windows = [cuda_ms(lambda: tx.step_(p, g, state), 20, 3)
+               for _ in range(REPS)]
+    loop_state = {"p": {k: v.clone() for k, v in p.items()},
+                  "s": ref_tx.init(p)}
+
+    def loop():
+        upd, loop_state["s"] = ref_tx.update(g, loop_state["s"],
+                                             loop_state["p"])
+        loop_state["p"] = op.apply_updates(loop_state["p"], upd)
+
+    plain_ms = cuda_ms(loop, 5, 1)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            loop()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.self_device_time_total > 0]
+    plain_device_ms = sum(e.self_device_time_total for e in kernels) / 2e3
+    plain_launches = sum(e.count for e in kernels) / 2
+    del loop_state
+    torch.cuda.empty_cache()
+
+    keys = list(shapes)
+    lib_state = [[torch.zeros_like(p[k]) for k in keys] for _ in range(2)]
+    steps = [torch.ones((), device=dev) for _ in keys]
+
+    def library():
+        torch._fused_adamw_([p[k] for k in keys], [g[k] for k in keys],
+                            lib_state[0], lib_state[1], [], steps,
+                            lr=SSL_LR, beta1=0.9, beta2=0.999,
+                            weight_decay=0.01, eps=1e-8, amsgrad=False,
+                            maximize=False)
+
+    library_ms = statistics.median(cuda_ms(library, 20, 3)
+                                   for _ in range(REPS))
+    del lib_state, p, g, state
+    torch.cuda.empty_cache()
+    ms = statistics.median(windows)
+    nbytes = 28 * n
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"name": "fused_adamw", "route": "cuda",
+           "source": "video_spike_torch/csrc/fused_adamw.cu",
+           "replaces": None, "leaves": len(shapes), "elements": n,
+           "bitwise_steps": 3, "unequal": unequal[:10],
+           "launches_in_checks": check_launches, "ms": ms,
+           "ms_windows": windows, "bound_ms": bound_ms, "bound_by": "bytes",
+           "bound_bytes": nbytes, "share_of_bound": bound_ms / ms,
+           "plain_ms": plain_ms, "plain_device_ms": plain_device_ms,
+           "plain_launches": plain_launches, "library_ms": library_ms,
+           "grid": tx._fused_tables.grid,
+           "chunks": tx._fused_tables.n_chunks,
+           "segments": tx._fused_tables.n_segs}
+    emit("fused_adamw", **out)
+    if unequal or check_launches != 3:
+        raise AssertionError(f"fused AdamW against the per-leaf loop: "
+                             f"{len(unequal)} leaves differ "
+                             f"({unequal[:10]}), {check_launches} launches "
+                             f"for 3 steps")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2748,6 +2884,7 @@ def phase_ssl_main_path(work: Path) -> tuple:
     import torch
 
     from video_spike_torch.cli import pretrain, test
+    from video_spike_torch.ops import fused_adamw
     from video_spike_torch.ops import fused_readout as fr
 
     run = work / "ssl"
@@ -2758,6 +2895,7 @@ def phase_ssl_main_path(work: Path) -> tuple:
     args = ssl_args(run, "logs", SSL_MAX_STEPS)
     torch.cuda.reset_peak_memory_stats()
     fr.apply_scaled_outer.launches = 0
+    fused_adamw.step_.launches = 0
     with contextlib.chdir(run):
         _, trainer, _, _ = pretrain.build_trainer(args, data)
         trainer.max_steps = SSL_FIRST_STEPS
@@ -2788,6 +2926,7 @@ def phase_ssl_main_path(work: Path) -> tuple:
         test_bps = test.main(args, data=data)
         embeddings = np.load(res["path"], allow_pickle=True).item()[SSL_EID]
     launches = fr.apply_scaled_outer.launches
+    adamw_launches = fused_adamw.step_.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     _free_card()
     losses = first["losses"] + res["train_losses"]
@@ -2809,6 +2948,7 @@ def phase_ssl_main_path(work: Path) -> tuple:
            "resumed_run_seconds": resumed_s, "peak_mem_gb": peak_gb,
            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
            "fused_readout_launches": launches,
+           "fused_adamw_launches": adamw_launches,
            "background_flushes": flushes, "sidecar_step": sidecar["step"],
            "checkpoint_step": ckpt_step,
            "resume_mid_epoch": [l for l in resume_log.lines
@@ -2835,6 +2975,9 @@ def phase_ssl_main_path(work: Path) -> tuple:
         raise AssertionError(f"cli.test bps: {test_bps}")
     if launches or out["allow_tf32"]:
         raise AssertionError("fused readout launched or TF32 on")
+    if adamw_launches != len(losses):
+        raise AssertionError(f"fused AdamW: {adamw_launches} launches in "
+                             f"{len(losses)} steps trained")
     if len(flushes) != SSL_FIRST_STEPS // SSL_FLUSH_EVERY - 1 \
             or sidecar["step"] != ckpt_step or ckpt_step != SSL_FIRST_STEPS \
             or not out["resume_mid_epoch"]:
@@ -4171,6 +4314,7 @@ import torch.distributed as dist
 from chip_smoke import card_report, ssl_args, ssl_staged_trainer
 from video_spike_torch.cli import pretrain
 from video_spike_torch.core.runtime import exit_rank, setup_runtime
+from video_spike_torch.ops import fused_adamw
 from video_spike_torch.ops import fused_readout as fr
 from video_spike_torch.parallel import multihost as mh
 from video_spike_torch.train import contrast
@@ -4202,11 +4346,13 @@ pretrain.make_contrast_trainer, contrast.AdamW = make, adamw
 argv = ssl_args(run, "mc_logs", cfg["max_steps"]) + [
     "--validate_every", str(cfg["validate_every"])]
 fr.apply_scaled_outer.launches = 0
+fused_adamw.step_.launches = 0
 res = pretrain.main(argv, data=data)
 sums = [mh.replica_checksums(trainers[0].params, dist.group.WORLD)]
 res2 = pretrain.main(argv + ["--resume"], data=data)
 sums.append(mh.replica_checksums(trainers[1].params, dist.group.WORLD))
 launches = fr.apply_scaled_outer.launches
+adamw_launches = fused_adamw.step_.launches
 grad_bytes = sum(v.numel() * v.element_size()
                  for v in trainers[1].params.values())
 pretrain.make_contrast_trainer, contrast.AdamW = _make, _adamw
@@ -4229,6 +4375,7 @@ for _ in range(cfg["windows"]):
     torch.cuda.synchronize()
     ms.append(start.elapsed_time(end) / cfg["steps"])
 out = {"card": card_report(), "lrs": lrs, "launches": launches,
+       "adamw_launches": adamw_launches,
        "first": {k: res[k] for k in ("train_losses", "steps", "start_step",
                                      "val_history", "n_params")},
        "resumed": {k: res2[k] for k in ("train_losses", "steps",
@@ -4647,6 +4794,9 @@ def phase_mc_ssl(work: Path) -> dict:
                 or r["resumed"]["steps"] != MC_SSL_MAX - MC_SSL_FIRST:
             bad.append(f"rank {r['card']['rank']} steps: {r['first']}, "
                        f"{r['resumed']}")
+        if r["adamw_launches"] != MC_SSL_MAX:
+            bad.append(f"rank {r['card']['rank']}: {r['adamw_launches']} "
+                       f"fused AdamW launches in {MC_SSL_MAX} steps")
     if not losses or not all(math.isfinite(v) for v in losses):
         bad.append(f"losses {losses}")
     if [r["artifact"] for r in ranks] != [True] * CARDS:
@@ -4662,7 +4812,8 @@ def phase_mc_ssl(work: Path) -> dict:
            "one_card": one,
            "grad_bytes_all_reduced_per_step": r0["grad_bytes_per_step"],
            "cards": [r["card"] for r in ranks], "launch_seconds": seconds,
-           "launches": sum(r["launches"] for r in ranks)}
+           "launches": sum(r["launches"] for r in ranks),
+           "adamw_launches": [r["adamw_launches"] for r in ranks]}
     emit("mc_ssl", **out)
     if bad:
         raise AssertionError("; ".join(bad))
@@ -4964,6 +5115,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     phase_build()
     kernel = phase_kernel()
+    adamw = phase_fused_adamw()
     with tempfile.TemporaryDirectory(prefix="vst_smoke_") as tmp:
         work = Path(tmp)
         main_path = phase_main_path(work)
@@ -4978,7 +5130,7 @@ def main(argv=None) -> int:
         phase_vtt_step_time(work)
         tensor = phase_tensor_main_path(work)
         phase_rrr_main_path(work)
-        _, ssl = phase_ssl_main_path(work)
+        ssl_path, ssl = phase_ssl_main_path(work)
         phase_ssl_card_vs_cpu()
         phase_ssl_step_time(work, ssl)
         del ssl
@@ -5033,7 +5185,9 @@ def main(argv=None) -> int:
                              f"{kernel['launches_by_path']}")
     kernel["probe"]["launches"] = probe["launches"]
     kernel["b64"]["launches"] = dist["dp4"]["launches"]
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    adamw["launches"] = ssl_path["fused_adamw_launches"]
+    adamw["launches_by_path"] = {"ssl": ssl_path["fused_adamw_launches"]}
+    print(json.dumps({"kernels": [kernel, adamw]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

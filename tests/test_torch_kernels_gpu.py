@@ -24,6 +24,13 @@ gloo ranks on one card run the data-parallel fused step (each gathers the
 other's rank-B factors) and end with bitwise-equal kernels; two gloo
 ranks run a column-split Dense (``parallel/tensor``) on CUDA tensors
 against the unsplit layer.
+
+The multi-tensor AdamW (``csrc/fused_adamw.cu``) is held bitwise against
+the per-leaf loop on the card (``AdamW.update`` + ``apply_updates``, the
+same f32 operations in the same order) over 3 steps: at the SSL model's 255
+leaf shapes (ContrastViTMAE over ViT-MAE-Base, 111,002,116 elements, with
+its 1- and 3-element leaves), and at odd sizes in views that start 4 and 8
+bytes off a 16-byte boundary.
 """
 
 import os
@@ -34,8 +41,16 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import yaml
 
+from video_spike_torch.models.vit_mae import ContrastViTMAE
+from video_spike_torch.ops import fused_adamw
 from video_spike_torch.ops import fused_readout as tfr
+from video_spike_torch.ops.optim import (
+    AdamW,
+    apply_updates,
+    cosine_onecycle_schedule,
+)
 
 torch.set_num_threads(1)
 
@@ -311,3 +326,153 @@ def test_two_gloo_ranks_column_split_dense_on_the_card(cuda_device,
     for r in range(2):
         errs = torch.load(tmp_path / f"e{r}.pt")
         assert max(errs) <= 1e-5, errs
+
+
+# ---------------------------------------------------------------------------
+# the multi-tensor AdamW
+# ---------------------------------------------------------------------------
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _ssl_leaf_shapes() -> dict:
+    """ContrastViTMAE's leaves at ``configs/model/vit_mae/vit_mae.yaml``'s
+    widths, read on the meta device."""
+    cfg = yaml.safe_load((REPO / "configs/model/vit_mae/vit_mae.yaml")
+                         .read_text())
+    model = ContrastViTMAE.from_config(cfg, device="meta")
+    return {k: tuple(p.shape) for k, p in model.named_parameters()}
+
+
+def _leaf(n_shape, offset, device, fill) -> torch.Tensor:
+    """A contiguous f32 leaf of shape ``n_shape`` holding ``fill``, as a
+    view ``offset`` floats into a larger buffer."""
+    n = int(np.prod(n_shape, dtype=np.int64))
+    buf = torch.empty(n + offset, device=device)
+    t = buf[offset:].view(n_shape)
+    t.copy_(fill)
+    return t
+
+
+def _bits32(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().view(torch.int32)
+
+
+ODD_SHAPES = {"one": (1,), "three": (3,), "five": (5,), "seven": (7,),
+              "ragged": (1023,), "wide": (4097,), "big": (65_537,),
+              "matrix": (129, 33), "scalar": ()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,offset,g_offset", [
+    ("ssl", 0, 0), ("odd", 0, 0), ("odd", 1, 1), ("odd", 2, 2),
+    ("odd", 0, 1), ("ssl", 0, 3)])
+def test_fused_adamw_matches_the_per_leaf_loop(cuda_device, case, offset,
+                                               g_offset):
+    """p, mu and nu bitwise the per-leaf loop's after each of 3 steps, on
+    the card; ``offset`` floats shift p, mu and nu of the kernel's side off
+    a 16-byte boundary (4 and 8 bytes), ``g_offset`` its gradients alone
+    (as a data-parallel reduction's views into one flat buffer are)."""
+    shapes = _ssl_leaf_shapes() if case == "ssl" else ODD_SHAPES
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    sched = cosine_onecycle_schedule(100, 5e-5, 0.15, 10, 1e4)
+    ref_tx, tx = (AdamW(sched, weight_decay=0.01, eps=1e-8)
+                  for _ in range(2))
+    start = {k: 0.02 * torch.randn(s, generator=gen, device=cuda_device)
+             for k, s in shapes.items()}
+    ref_p = {k: v.clone() for k, v in start.items()}
+    ref_state = ref_tx.init(ref_p)
+    p = {k: _leaf(s, offset, cuda_device, start[k])
+         for k, s in shapes.items()}
+    state = {"count": 0,
+             "mu": {k: _leaf(s, offset, cuda_device, 0.0)
+                    for k, s in shapes.items()},
+             "nu": {k: _leaf(s, offset, cuda_device, 0.0)
+                    for k, s in shapes.items()}}
+    for step in range(3):
+        # gradients of several scales, one leaf of zeros (the fixed
+        # temperature's)
+        g = {k: torch.randn(s, generator=gen, device=cuda_device)
+             * 10.0 ** -(2 + i % 4) * (i != 0)
+             for i, (k, s) in enumerate(shapes.items())}
+        upd, ref_state = ref_tx.update(g, ref_state, ref_p)
+        ref_p = apply_updates(ref_p, upd)
+        g_k = {k: _leaf(s, g_offset, cuda_device, g[k])
+               for k, s in shapes.items()}
+        before = fused_adamw.step_.launches
+        tx.step_(p, g_k, state)
+        torch.cuda.synchronize()
+        assert fused_adamw.step_.launches == before + 1
+        assert state["count"] == ref_state["count"] == step + 1
+        for k in shapes:
+            for what, got, want in (("p", p[k], ref_p[k]),
+                                    ("mu", state["mu"][k],
+                                     ref_state["mu"][k]),
+                                    ("nu", state["nu"][k],
+                                     ref_state["nu"][k])):
+                assert torch.equal(_bits32(got), _bits32(want)), (
+                    step, k, what)
+
+
+@pytest.mark.gpu
+def test_fused_adamw_launches_once_a_step_and_keeps_its_table(cuda_device):
+    """One launch a step whatever the number of leaves; the device table is
+    built once and again only after a leaf moved."""
+    shapes = _ssl_leaf_shapes()
+    p = {k: torch.zeros(s, device=cuda_device) for k, s in shapes.items()}
+    tx = AdamW(5e-5, weight_decay=0.01)
+    state = tx.init(p)
+    g = {k: torch.ones_like(v) for k, v in p.items()}
+    before = fused_adamw.step_.launches
+    tables = []
+    for step in range(4):
+        tx.step_(p, g, state)
+        assert fused_adamw.step_.launches == before + step + 1
+        tables.append(tx._fused_tables)
+    assert all(t is tables[0] for t in tables)
+    assert tables[0].claims == 4 * (tables[0].n_chunks + tables[0].grid)
+    segs, _ = fused_adamw.segments(
+        [int(np.prod(s)) for s in shapes.values()], tables[0].n_chunks)
+    assert len(shapes) == 255 and int(segs[:, 2].sum()) == 111_002_116
+    state["mu"]["temperature"] = state["mu"]["temperature"].clone()
+    tx.step_(p, g, state)
+    assert tx._fused_tables is not tables[0]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_fused_adamw_cuda_leaves_never_take_the_plain_version(cuda_device,
+                                                              monkeypatch):
+    """What the kernel does not take raises: a bf16 leaf, a non-contiguous
+    one, leaves on two devices, ``mu_dtype``; none of it reaches the
+    per-leaf loop, which only the CPU's leaves take."""
+    def no_loop(self, grads, state, params):
+        raise AssertionError("a CUDA leaf took the plain version")
+
+    def case(dtype=torch.float32, transpose=False, grad_on_cpu=False,
+             mu_dtype=None, first_on_cpu=False):
+        tx = AdamW(1e-3, mu_dtype=mu_dtype)
+        p = {"a": torch.zeros(3, device="cpu" if first_on_cpu
+                              else cuda_device),
+             "b": torch.zeros(8, 4, dtype=dtype, device=cuda_device)}
+        if transpose:
+            p["b"] = p["b"].t()
+        state = tx.init(p)
+        g = {k: torch.ones_like(v) for k, v in p.items()}
+        if grad_on_cpu:
+            g["b"] = g["b"].cpu()
+        tx.step_(p, g, state)
+
+    monkeypatch.setattr(AdamW, "update", no_loop)
+    before = fused_adamw.step_.launches
+    for kw, match in ((dict(dtype=torch.bfloat16), "f32 only"),
+                      (dict(transpose=True), "not contiguous"),
+                      (dict(grad_on_cpu=True), "on cpu"),
+                      (dict(mu_dtype=torch.bfloat16), "mu_dtype"),
+                      (dict(first_on_cpu=True), "mixed devices")):
+        with pytest.raises(ValueError, match=match):
+            case(**kw)
+    assert fused_adamw.step_.launches == before
+    case()
+    torch.cuda.synchronize()
+    assert fused_adamw.step_.launches == before + 1

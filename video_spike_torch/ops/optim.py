@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from video_spike_torch.core.logging import logging as make_logger
+from video_spike_torch.ops import fused_adamw
 
 MASK32 = 0xFFFFFFFF
 
@@ -340,6 +341,7 @@ class AdamW:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.mu_dtype = mu_dtype
+        self._fused_tables = None    # ops/fused_adamw.py's device table
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
         return {"count": 0,
@@ -347,13 +349,20 @@ class AdamW:
                        for k, p in params.items()},
                 "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
 
+    def corrections(self, count: int) -> tuple:
+        """(bc1, bc2, lr) of the step from ``count``: both bias corrections
+        formed in f32, as optax forms them, and the learning rate at
+        ``count``; Python floats."""
+        c = np.float32(count + 1)
+        bc1 = _f32(np.float32(1.0) - np.float32(self.b1) ** c)
+        bc2 = _f32(np.float32(1.0) - np.float32(self.b2) ** c)
+        return bc1, bc2, _lr_at(self.lr, count)
+
     def update(self, grads: Mapping[str, torch.Tensor], state: dict,
                params: Mapping[str, torch.Tensor]):
         count = int(state["count"])
         c = count + 1
-        bc1 = _f32(np.float32(1.0) - np.float32(self.b1) ** np.float32(c))
-        bc2 = _f32(np.float32(1.0) - np.float32(self.b2) ** np.float32(c))
-        lr = _lr_at(self.lr, count)
+        bc1, bc2, lr = self.corrections(count)
         updates, mu, nu = {}, {}, {}
         for k, g in grads.items():
             mu_k, nu_k, p = state["mu"][k], state["nu"][k], params[k]
@@ -366,6 +375,14 @@ class AdamW:
             updates[k] = -lr * u
             mu[k] = m if self.mu_dtype is None else m.to(self.mu_dtype)
         return updates, {"count": c, "mu": mu, "nu": nu}
+
+    def step_(self, params: Mapping[str, torch.Tensor],
+              grads: Mapping[str, torch.Tensor], state: dict) -> None:
+        """``update`` then ``apply_updates``, in place: the parameters,
+        ``state``'s moments (the same tensors, each in its leaf's shape)
+        and its count. CUDA leaves take one launch of the multi-tensor
+        kernel, CPU leaves the per-leaf loop (``ops/fused_adamw.py``)."""
+        fused_adamw.step_(self, params, grads, state)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,10 @@ Counterpart of ``video_spike_tpu/train/contrast.py`` (reference
   whole stacked batch and the temperature stay shared), then applies the
   ``loss_fn_`` dispatch (InfoNCE / + recon / MAE-only);
 - the optimizer is AdamW with a constant learning rate, as in the JAX
-  trainer (the yaml's scheduler is not read); masking noise for step k is
+  trainer (the yaml's scheduler is not read), stepped in place
+  (``AdamW.step_``: on a card one launch of ``csrc/fused_adamw.cu`` for
+  every leaf and both moments; loaded and stashed parameters are copied
+  into the live leaves, never aliased); masking noise for step k is
   drawn from a ``torch.Generator`` seeded from (seed, k), so a resumed run
   draws the same masks as an uninterrupted one;
 - the whole uint8 pretrain frame array is staged on the device once when it
@@ -86,7 +89,7 @@ from video_spike_torch.core.tracking import Tracker
 from video_spike_torch.data.contrast import device_frame_transform
 from video_spike_torch.data.prefetch import background
 from video_spike_torch.ops.contrastive import loss_fn_
-from video_spike_torch.ops.optim import AdamW, apply_updates
+from video_spike_torch.ops.optim import AdamW
 from video_spike_torch.parallel import multihost as mh
 from video_spike_torch.parallel.mesh import make_mesh
 from video_spike_torch.train.checkpoint import (
@@ -192,9 +195,14 @@ class ContrastTrainer:
         return {k: p.detach() for k, p in self.model.named_parameters()}
 
     def _set_params(self, new: Dict[str, torch.Tensor]) -> None:
+        """Copy ``new`` into the live leaves. The step updates them in
+        place, so none may share storage with the tensors it was given
+        (the best stash, a loaded checkpoint), and their storage stays put
+        for the optimizer's device table."""
         named = dict(self.model.named_parameters())
-        for k, t in new.items():
-            named[k].data = t
+        with torch.no_grad():
+            for k, t in new.items():
+                named[k].copy_(t)
 
     def _init_if_needed(self) -> None:
         if self._initialized:
@@ -277,10 +285,9 @@ class ContrastTrainer:
                 with span("grad_allreduce"):
                     grads = mh.sum_across(grads, self._dp_group)
             with span("optimizer"):
-                params = self.params
-                updates, self.opt_state = self.tx.update(
-                    grads, self.opt_state, params)
-                self._set_params(apply_updates(params, updates))
+                # the leaves and moments in place: one kernel launch on a
+                # card (ops/fused_adamw.py)
+                self.tx.step_(named, grads, self.opt_state)
         return {"loss": loss.detach(), **aux}
 
     # ------------------------------------------------------------------
