@@ -6,11 +6,18 @@ profiler's clock.
 - The ring keeps the newest ``CAP`` spans.
 - Under ``torch.profiler``, three steps of a tiny ``ContrastTrainer``
   (``tests/test_torch_contrast.py``'s, over an in-memory session, frame
-  cache live) driven as ``fit()`` drives them, and a staged epoch of the
-  Linear ``BaseTrainer`` (standard step and fused step), record one
-  ``vs.step`` a step whose children, found by their intervals, are
-  ``vs.forward``, ``vs.backward`` and ``vs.optimizer`` in that order. The
-  SSL loop records one ``vs.producer_wait`` a batch, before its step.
+  cache live) driven as ``fit()`` drives them, a staged epoch of the
+  Linear ``BaseTrainer`` (standard step and fused step), and three steps
+  of ``cli/pretrain_videomae.py``'s loop (``clip_stream``,
+  ``train_step``) over a tiny ``VideoMAEForPreTraining`` with tube
+  masking, record one ``vs.step`` a step whose direct children, found by
+  their intervals, are ``vs.forward``, ``vs.backward`` and
+  ``vs.optimizer`` in that order. The SSL and pretraining loops record one
+  ``vs.producer_wait`` a batch, before its step.
+- In the two ViT models each attention core is a ``vs.attention`` span
+  directly under ``vs.forward``, once a block, and its backward one more
+  (on the CPU autograd runs it on the calling thread, inside
+  ``vs.backward``).
 - Every recorded span matches its kineto ``vs.*`` range within 1 ms at both
   ends.
 - Profiling changes no number: losses and parameters equal those of the
@@ -47,7 +54,16 @@ LINEAR_OPTIMIZERS = {
     "linear_fused": {"name": "adafactor_lean", "fused_readout": True,
                      "fused_min_kernel": 1},
 }
-KINDS = ["ssl", *LINEAR_OPTIMIZERS]
+VMAE_STEPS = 3
+VMAE = dict(image_size=32, patch_size=8, num_channels=3, num_frames=4,
+            tubelet_size=2, hidden_size=32, num_hidden_layers=2,
+            num_attention_heads=4, intermediate_size=64, mask_type="tube",
+            norm_pix_loss=True)
+VMAE_DECODER = dict(decoder_hidden_size=32, decoder_num_hidden_layers=1,
+                    decoder_num_attention_heads=4,
+                    decoder_intermediate_size=64)
+KINDS = ["ssl", *LINEAR_OPTIMIZERS, "videomae_pretrain"]
+VIT_KINDS = ["ssl", "videomae_pretrain"]
 MAIN = threading.get_ident()
 
 
@@ -68,12 +84,20 @@ def _ranges(prof) -> dict:
     return {k: sorted(v) for k, v in out.items()}
 
 
-def _children(got, parent) -> list:
+def _within(got, parent) -> list:
     """The spans of ``parent``'s thread that lie within it, by start."""
     return sorted((s for s in got if s is not parent
                    and s.thread == parent.thread
                    and parent.start_ns <= s.start_ns <= s.end_ns
                    <= parent.end_ns), key=lambda s: s.start_ns)
+
+
+def _children(got, parent) -> list:
+    """The spans directly within ``parent`` (within no other span that is
+    within it), by start."""
+    inner = _within(got, parent)
+    return [s for s in inner
+            if not any(s in _within(inner, o) for o in inner if o is not s)]
 
 
 def _ssl_session(seed: int = 0) -> dict:
@@ -132,6 +156,44 @@ def _linear_trainer(d, log_dir, optimizer):
         log_dir=str(log_dir), device="cpu")
 
 
+class _Pretraining:
+    """``cli/pretrain_videomae.py``'s loop over 4 in-memory trials of 12
+    uint8 frames of 24 x 24 in batches of 2: ``main``'s functions on a
+    tiny model."""
+
+    def __init__(self):
+        from video_spike_torch.cli import pretrain_videomae as cli
+        from video_spike_torch.models.videomae import VideoMAEForPreTraining
+        from video_spike_torch.ops.optim import AdamW
+
+        self.cli = cli
+        self.model = VideoMAEForPreTraining(VMAE, dtype=torch.float32,
+                                            **VMAE_DECODER)
+        self.model.reset_parameters(torch.Generator().manual_seed(0))
+        self.tx = AdamW(1e-3, weight_decay=0.01)
+        self.params = {k: p.detach()
+                       for k, p in self.model.named_parameters()}
+        rng = np.random.default_rng(0)
+        video = rng.integers(0, 256, (4, 12, 1, 24, 24), dtype=np.uint8)
+        self.loader = [{"video": video[:2]}, {"video": video[2:]}]
+
+    def work(self) -> list:
+        cli = self.cli
+        step_fn = cli.make_step(self.model, self.tx, 4, 32, 0.75)
+        opt_state, gen = self.tx.init(self.params), torch.Generator()
+        stream = cli.clip_stream(self.loader, "video", 4, "cpu")
+        losses = []
+        try:
+            for k in range(VMAE_STEPS):
+                video = next(stream)["video"]
+                self.params, opt_state, loss = cli.train_step(
+                    step_fn, self.params, opt_state, video, gen, 0, k)
+                losses.append(float(loss))
+        finally:
+            stream.close()
+        return losses
+
+
 def _run(kind, d, log_dir, traced: bool) -> dict:
     """One run of ``kind``, under a profiler or not: its losses, final
     parameters, recorded spans and the profiler's ``vs.*`` ranges."""
@@ -142,6 +204,9 @@ def _run(kind, d, log_dir, traced: bool) -> dict:
         def work():
             _ssl_steps(trainer)
             return list(trainer.train_losses)
+    elif kind == "videomae_pretrain":
+        trainer = _Pretraining()
+        work = trainer.work
     else:
         trainer = _linear_trainer(d, log_dir, LINEAR_OPTIMIZERS[kind])
 
@@ -160,7 +225,8 @@ def _run(kind, d, log_dir, traced: bool) -> dict:
         losses = work()
     out = {"losses": losses,
            "params": {k: v.clone() for k, v in trainer.params.items()},
-           "spans": spans.recorded(), "ranges": ranges}
+           "spans": spans.recorded(), "ranges": ranges,
+           "model": trainer.model}
     spans.clear()
     return out
 
@@ -262,7 +328,8 @@ def test_each_thread_keeps_its_own_spans():
 def test_each_step_holds_forward_backward_optimizer(runs, kind):
     got = runs[kind, True]["spans"]
     steps = [s for s in got if s.name == "step"]
-    assert len(steps) == (SSL_STEPS if kind == "ssl" else 2)
+    assert len(steps) == {"ssl": SSL_STEPS,
+                          "videomae_pretrain": VMAE_STEPS}.get(kind, 2)
     for st in steps:
         assert st.thread == MAIN
         # the step is outermost, its children do not nest
@@ -307,8 +374,41 @@ def test_ssl_loop_waits_once_a_batch(runs):
     for w, st in zip(waits, steps):
         assert w.thread == MAIN and w.end_ns <= st.start_ns
     # the loop's fetch of the losses is no span
-    assert {s.name for s in got} == {"step", "producer_wait",
+    assert {s.name for s in got} == {"step", "producer_wait", "attention",
                                      *STEP_CHILDREN}
+
+
+def test_videomae_loop_waits_once_a_batch(runs):
+    got = runs["videomae_pretrain", True]["spans"]
+    steps = [s for s in got if s.name == "step"]
+    waits = [s for s in got if s.name == "producer_wait"]
+    assert len(waits) == len(steps) == VMAE_STEPS
+    for w, st in zip(waits, steps):
+        assert w.thread == MAIN and w.end_ns <= st.start_ns
+    assert {s.name for s in got} == {"step", "producer_wait", "attention",
+                                     *STEP_CHILDREN}
+
+
+@pytest.mark.parametrize("kind", VIT_KINDS)
+def test_attention_nests_under_forward_once_a_block(runs, kind):
+    from video_spike_torch.models.vit_mae import SelfAttention
+
+    run = runs[kind, True]
+    got = run["spans"]
+    blocks = sum(isinstance(m, SelfAttention)
+                 for m in run["model"].modules())
+    assert blocks >= 3
+    for name in ("forward", "backward"):
+        phases = [s for s in got if s.name == name]
+        assert phases
+        for ph in phases:
+            # directly under the phase, once a block, none nested
+            kids = _children(got, ph)
+            assert [s.name for s in kids] == ["attention"] * blocks, name
+            assert all(not _within(got, s) for s in kids)
+    attention = [s for s in got if s.name == "attention"]
+    assert len(attention) == 2 * blocks * len(
+        [s for s in got if s.name == "step"])
 
 
 # ---------------------------------------------------------------------------

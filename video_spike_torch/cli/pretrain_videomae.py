@@ -13,11 +13,19 @@ false``):
         --eid <eid> --data_dir ... [--max_steps N] [--mask_ratio 0.9] \
         [--video_mod video] [--device cuda|cpu]
 
-The loader's trials are cut to the model's 16 frames on the host; the
-frames go through the probe's own ``preprocess_frames`` on the device, so
-the encoder sees the probe's input distribution. The optimizer is AdamW
-(optax semantics) at the yaml's constant ``lr`` and ``wd``; each step's
-masking noise comes from a generator seeded from (seed, step).
+The loader's trials are cut to the model's 16 frames on the host, on the
+producer thread that stages them on the device (``clip_stream``: the
+pinned prefetch of ``data/prefetch.py``); the frames go through the
+probe's own ``preprocess_frames`` on the device, so the encoder sees the
+probe's input distribution. The model yaml's keys reach
+``VideoMAEForPreTraining`` as they are, ``mask_type`` (``random`` or
+``tube``) and ``norm_pix_loss`` among them. The optimizer is AdamW (optax
+semantics) at the yaml's constant ``lr`` and ``wd``; each step's masking
+noise comes from a generator seeded from (seed, step) (``mask_seed``).
+``main``'s loop is ``clip_stream``, ``make_step`` and ``train_step``, the
+functions a benchmark drives too; while a profiler records, each step is
+a ``vs.step`` span holding ``vs.forward``, ``vs.backward`` and
+``vs.optimizer``.
 ``backbone.pt`` (``{"params": {name: tensor}}``) goes to
 ``<log_dir>/<eid[:5]>/VideoMAEPretrain/``. ``main`` returns a dict: its
 ``path``, ``n_params`` and the per-step ``losses``.
@@ -37,7 +45,9 @@ from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
 from video_spike_torch.core.rng import set_seed
 from video_spike_torch.core.runtime import run_rank, setup_runtime
+from video_spike_torch.core.spans import span
 from video_spike_torch.data.dataset import make_loader, split_dataset
+from video_spike_torch.data.prefetch import prefetch_to_device
 from video_spike_torch.models.videomae import (
     VideoMAEForPreTraining,
     preprocess_frames,
@@ -48,33 +58,93 @@ from video_spike_torch.train.checkpoint import save_checkpoint
 _MASK63 = (1 << 63) - 1
 
 
+def frame_indices(source_frames: int, num_frames: int) -> np.ndarray:
+    """The ``num_frames`` of a trial's ``source_frames`` that the model
+    sees: the indices ``preprocess_frames`` would take on the device."""
+    return (np.linspace(0, 1, num_frames)
+            * (source_frames - 1)).astype(int)
+
+
+def clip_batches(loader, video_mod: str, num_frames: int):
+    """The loader's batches, epoch after epoch without end, as
+    ``{"video": the kept frames}`` on the host: only the frames kept cross
+    to the card."""
+    idx = None
+    while True:
+        n = 0
+        for batch in loader:
+            raw = np.asarray(batch[video_mod])
+            if idx is None:
+                idx = frame_indices(raw.shape[1], num_frames)
+            n += 1
+            yield {"video": raw[:, idx]}
+        if not n:
+            raise ValueError("the loader gave no batch")
+
+
+def clip_stream(loader, video_mod: str, num_frames: int, device):
+    """``clip_batches`` on a producer thread, staged ahead on ``device``;
+    the consumer's wait for a batch is the ``producer_wait`` span. Close
+    it when done."""
+    return prefetch_to_device(clip_batches(loader, video_mod, num_frames),
+                              device)
+
+
+def mask_seed(seed: int, step: int) -> int:
+    """The seed of step ``step``'s masking generator."""
+    return (seed * 0x9E3779B97F4A7C15 + step) & _MASK63
+
+
+def build(model_config: dict, optimizer_config, seed: int, device):
+    """(model, tx, params, opt_state): ``VideoMAEForPreTraining`` from the
+    model yaml's keys, initialised from ``seed``, and AdamW at the yaml's
+    ``lr`` and ``wd``."""
+    model = VideoMAEForPreTraining.from_config(model_config, device=device)
+    model.reset_parameters(torch.Generator(device=device).manual_seed(seed))
+    tx = AdamW(optimizer_config.get("lr", 1e-4),
+               weight_decay=optimizer_config.get("wd", 0.01))
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    return model, tx, params, tx.init(params)
+
+
 def make_step(model, tx, num_frames: int, image_size: int,
               mask_ratio: float):
     """``step(params, opt_state, video, generator) -> (params, opt_state,
     loss)``: preprocess, masked reconstruction loss, one optimizer step."""
 
     def step(params, opt_state, video, generator):
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in params.items()}
-        x = preprocess_frames(video, num_frames, image_size,
-                              source_frames=video.shape[1])
-        out = torch.func.functional_call(
-            model, leaves, (x,),
-            {"mask_ratio": mask_ratio, "generator": generator})
-        loss = out["recon_loss"]
-        names = list(leaves)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in names],
-                                    allow_unused=True)
-        with torch.no_grad():
-            # a leaf the loss does not reach (mask_token at ratio 0) has a
-            # zero gradient under jax.grad
-            grads = {k: torch.zeros_like(params[k]) if g is None else g
-                     for k, g in zip(names, grads)}
+        with span("forward"):
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in params.items()}
+            x = preprocess_frames(video, num_frames, image_size,
+                                  source_frames=video.shape[1])
+            out = torch.func.functional_call(
+                model, leaves, (x,),
+                {"mask_ratio": mask_ratio, "generator": generator})
+            loss = out["recon_loss"]
+        with span("backward"):
+            names = list(leaves)
+            grads = torch.autograd.grad(loss, [leaves[k] for k in names],
+                                        allow_unused=True)
+            with torch.no_grad():
+                # a leaf the loss does not reach (mask_token at ratio 0)
+                # has a zero gradient under jax.grad
+                grads = {k: torch.zeros_like(params[k]) if g is None else g
+                         for k, g in zip(names, grads)}
+        with span("optimizer"), torch.no_grad():
             updates, opt_state = tx.update(grads, opt_state, params)
             params = apply_updates(params, updates)
         return params, opt_state, loss.detach()
 
     return step
+
+
+def train_step(step_fn, params, opt_state, video, generator, seed: int,
+               step: int):
+    """Step ``step`` of the loop: its masking seed, then ``step_fn``."""
+    with span("step"):
+        generator.manual_seed(mask_seed(seed, step))
+        return step_fn(params, opt_state, video, generator)
 
 
 def main(argv=None):
@@ -101,16 +171,11 @@ def main(argv=None):
 
     mcfg = {k: v for k, v in dict(config.model).items()
             if k not in ("encoder", "decoder")}
-    model = VideoMAEForPreTraining.from_config(mcfg, device=device)
-    model.reset_parameters(
-        torch.Generator(device=device).manual_seed(config.seed))
+    model, tx, params, opt_state = build(mcfg, config.optimizer,
+                                         config.seed, device)
     num_frames = mcfg.get("num_frames", 16)
     image_size = mcfg.get("image_size", 224)
     max_steps = args.max_steps or 2000
-    tx = AdamW(config.optimizer.get("lr", 1e-4),
-               weight_decay=config.optimizer.get("wd", 0.01))
-    params = {k: p.detach() for k, p in model.named_parameters()}
-    opt_state = tx.init(params)
     n_params = sum(p.numel() for p in params.values())
     log.info(f"VideoMAEForPreTraining: {n_params/1e6:.1f}M params, "
              f"mask_ratio={extra.mask_ratio}, max_steps={max_steps}, "
@@ -118,28 +183,19 @@ def main(argv=None):
     step_fn = make_step(model, tx, num_frames, image_size, extra.mask_ratio)
     mask_gen = torch.Generator(device=device)
 
-    step, losses, sub_idx = 0, [], None
-    while step < max_steps:
-        for batch in train_dl:
-            raw = np.asarray(batch[extra.video_mod])
-            if sub_idx is None:
-                # the 16-of-120 subsample on the host (the indices
-                # preprocess_frames would take on the device), so only the
-                # frames kept cross to the card
-                sub_idx = (np.linspace(0, 1, num_frames)
-                           * (raw.shape[1] - 1)).astype(int)
-            video = torch.from_numpy(
-                np.ascontiguousarray(raw[:, sub_idx])).to(device)
-            mask_gen.manual_seed(
-                (config.seed * 0x9E3779B97F4A7C15 + step) & _MASK63)
-            params, opt_state, loss = step_fn(params, opt_state, video,
-                                              mask_gen)
+    losses = []
+    stream = clip_stream(train_dl, extra.video_mod, num_frames, device)
+    try:
+        for step in range(max_steps):
+            video = next(stream)["video"]
+            params, opt_state, loss = train_step(
+                step_fn, params, opt_state, video, mask_gen, config.seed,
+                step)
             losses.append(loss)   # a device scalar; fetched at log cadence
             if step % 50 == 0:
                 log.info({"step": step, "recon_loss": float(loss)})
-            step += 1
-            if step >= max_steps:
-                break
+    finally:
+        stream.close()
 
     out_dir = os.path.join(args.log_dir, args.eid[:5], "VideoMAEPretrain")
     path = save_checkpoint(out_dir, "backbone", {"params": params})

@@ -19,6 +19,11 @@ A profiler started on one thread does not see the ranges opened on
 another, but the ring keeps every thread's spans while the process
 traces. ``recorded()`` returns a copy of the ring and ``clear()`` empties
 it.
+
+``backward_span(name, output, inputs)`` spans autograd's backward of what
+led from ``inputs`` to ``output``: a hook on ``output``'s gradient opens
+it and a hook on the gradients of all of ``inputs`` closes it. On a card
+autograd runs the backward on its own thread, so the span lands there.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import threading
 import time
 from typing import NamedTuple
 
+import torch
 import torch.autograd.profiler as _profiler
 # the range ``torch.profiler.record_function`` opens, entered from C: the
 # clock read and the profiler's own are one call apart, with nothing
@@ -95,3 +101,25 @@ def recorded() -> list:
 
 def clear() -> None:
     _RING.clear()
+
+
+def backward_span(name: str, output: torch.Tensor, inputs) -> None:
+    """While a profiler records and ``output`` needs a gradient, a span
+    named ``name`` over the backward from ``output``'s gradient to those
+    of every tensor of ``inputs``; else nothing. The hooks return None, so
+    no gradient changes."""
+    if not _profiler._is_profiler_enabled or not output.requires_grad:
+        return
+    opened = []
+
+    def open_(grad):
+        s = _On(name)
+        s.__enter__()
+        opened.append(s)
+
+    def close(grads):
+        if opened:
+            opened.pop().__exit__(None, None, None)
+
+    output.register_hook(open_)
+    torch.autograd.graph.register_multi_grad_hook(tuple(inputs), close)

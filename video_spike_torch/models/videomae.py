@@ -15,7 +15,10 @@ wrapper ``src/model/videomae.py:4-36``):
   stream stays bf16);
 - ``VideoMAEForPreTraining``: encode the visible tubelets, decode all of
   them with mask tokens, regress the masked tubelets' pixels; the encoder
-  ends in its f32 LayerNorm, so the decoder's stream is f32;
+  ends in its f32 LayerNorm, so the decoder's stream is f32. Masking is
+  random over the tokens or, with ``mask_type: tube``, VideoMAE's tubes
+  (``tube_masking``); ``norm_pix_loss`` regresses VideoMAE's per-tubelet
+  normalized pixels (``normalized_tubelets``);
 - ``preprocess_frames``: 16 of the trial's frames, [0, 1], a half-pixel
   bilinear resize (antialiased when it shrinks, as ``jax.image.resize``),
   grayscale to RGB, ImageNet normalization;
@@ -110,6 +113,54 @@ def tubelet_patchify(video: torch.Tensor, tubelet: int,
     return x.reshape(B, t * h * w, tubelet * patch * patch * C)
 
 
+def tube_masking(x: torch.Tensor, mask_ratio: float, slots: int,
+                 generator: Optional[torch.Generator] = None,
+                 noise: Optional[torch.Tensor] = None):
+    """VideoMAE's ``TubeMaskingGenerator``: each clip masks
+    ``int(mask_ratio * P)`` of its P spatial positions in every one of its
+    ``slots`` tubelet slots, so whole tubes are hidden. The kept positions
+    are the first of the argsort of uniform noise (B, P) (drawn from
+    ``generator`` unless ``noise`` is given). Returns what
+    ``random_masking`` returns: the visible tokens in their (t, h, w)
+    order, the mask (1 where removed) and ``ids_restore``."""
+    B, L, D = x.shape
+    patches = L // slots
+    keep = patches - int(mask_ratio * patches)
+    if noise is None:
+        noise = torch.rand((B, patches), generator=generator,
+                           device=x.device)
+    order = torch.argsort(noise, dim=1, stable=True)
+    spatial = torch.ones((B, patches), device=x.device)
+    spatial.scatter_(1, order[:, :keep], 0.0)
+    mask = spatial.repeat(1, slots)                      # (B, L), t-major
+    # the visible tokens first, each group in token order
+    ids_shuffle = torch.argsort(mask, dim=1, stable=True)
+    ids_restore = torch.argsort(ids_shuffle, dim=1, stable=True)
+    ids_keep = ids_shuffle[:, :keep * slots]
+    visible = torch.gather(x, 1, ids_keep[:, :, None].expand(-1, -1, D))
+    return visible, mask, ids_restore
+
+
+def normalized_tubelets(video: torch.Tensor, tubelet: int,
+                        patch: int) -> torch.Tensor:
+    """VideoMAE's normalized-pixel target: (B, T, 3, H, W) frames as
+    ``preprocess_frames`` gives them -> (B, L, tubelet*patch*patch*3).
+    The frames are taken back to [0, 1] (``x * std + mean``); each
+    tubelet's pixels of a channel less their mean, over their unbiased
+    standard deviation plus 1e-6, laid out (pixel, channel)."""
+    c = video.shape[2]
+    mean = torch.from_numpy(IMAGENET_MEAN).to(video.device)
+    std = torch.from_numpy(IMAGENET_STD).to(video.device)
+    x = video.float() * std.reshape(1, 1, c, 1, 1) + mean.reshape(
+        1, 1, c, 1, 1)
+    t = tubelet_patchify(x, tubelet, patch)
+    b, length, _ = t.shape
+    t = t.reshape(b, length, -1, c)
+    t = (t - t.mean(dim=-2, keepdim=True)) / (
+        t.var(dim=-2, unbiased=True, keepdim=True).sqrt() + 1e-6)
+    return t.reshape(b, length, -1)
+
+
 def preprocess_frames(video: torch.Tensor, num_frames: int = 16,
                       image_size: int = 224,
                       source_frames: int = 120) -> torch.Tensor:
@@ -170,7 +221,12 @@ class VideoMAEBackbone(nn.Module):
 class VideoMAEForPreTraining(nn.Module):
     """Masked video modeling (``modeling_videomae.py:790-972``): a ViT
     encoder over the visible tubelets, a 4 x 384 decoder over all of them,
-    MSE on the masked tubelets' pixels."""
+    MSE on the masked tubelets' pixels.
+
+    Two configuration keys: ``mask_type`` ``"random"`` (the default:
+    ``random_masking`` over every token) or ``"tube"`` (``tube_masking``,
+    VideoMAE's), and ``norm_pix_loss`` (default false: the normalized
+    frames' pixels; true: ``normalized_tubelets``, VideoMAE's target)."""
 
     def __init__(self, config, device=None, dtype=torch.bfloat16,
                  decoder_hidden_size: int = 384,
@@ -180,6 +236,11 @@ class VideoMAEForPreTraining(nn.Module):
         super().__init__()
         cfg = self.config = dict(config)
         c = cfg.get("num_channels", 3)
+        self.mask_type = cfg.get("mask_type", "random")
+        if self.mask_type not in ("random", "tube"):
+            raise ValueError(f"mask_type {self.mask_type!r}: want 'random' "
+                             f"or 'tube'")
+        self.norm_pix_loss = bool(cfg.get("norm_pix_loss", False))
         self.patch = cfg.get("patch_size", 16)
         self.tubelet = cfg.get("tubelet_size", 2)
         hidden = cfg.get("hidden_size", 768)
@@ -222,8 +283,13 @@ class VideoMAEForPreTraining(nn.Module):
         B, L, D = tokens.shape
         tokens = tokens + self._pos.get((D, L), tokens.device)[None].to(
             tokens.dtype)
-        visible, mask, ids_restore = random_masking(tokens, mask_ratio,
-                                                    generator, noise)
+        if self.mask_type == "tube":
+            visible, mask, ids_restore = tube_masking(
+                tokens, mask_ratio, video.shape[1] // self.tubelet,
+                generator, noise)
+        else:
+            visible, mask, ids_restore = random_masking(tokens, mask_ratio,
+                                                        generator, noise)
         enc = self.encoder(visible)                        # f32 (final LN)
         # flax Dense(dtype=None) on the f32 stream: an f32 Dense
         x = dense(enc, self.decoder_embed.kernel, self.decoder_embed.bias,
@@ -237,7 +303,11 @@ class VideoMAEForPreTraining(nn.Module):
         dec = self.decoder(x)
         pred = dense(dec, self.decoder_pred.kernel, self.decoder_pred.bias,
                      torch.float32)
-        target = tubelet_patchify(video.float(), self.tubelet, self.patch)
+        if self.norm_pix_loss:
+            target = normalized_tubelets(video, self.tubelet, self.patch)
+        else:
+            target = tubelet_patchify(video.float(), self.tubelet,
+                                      self.patch)
         loss = ((pred - target) ** 2).mean(dim=-1)
         loss = (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         return {"recon_loss": loss, "logits": pred, "mask": mask}

@@ -56,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from video_spike_torch.core.spans import backward_span, span
 from video_spike_torch.models.linear import Dense, layer_dense, lecun_normal_
 from video_spike_torch.ops.attention import attention_bshd
 from video_spike_torch.ops.fused_readout import dense
@@ -144,7 +145,9 @@ class LayerNorm(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """qkv Dense -> ``attention_bshd`` -> proj Dense."""
+    """qkv Dense -> ``attention_bshd`` -> proj Dense; while a profiler
+    records, ``attention_bshd`` and its backward are the ``vs.attention``
+    spans (``core/spans.py``)."""
 
     def __init__(self, hidden: int, heads: int, dtype=torch.bfloat16,
                  device=None):
@@ -161,7 +164,10 @@ class SelfAttention(nn.Module):
         b, s, _ = x.shape
         qkv = layer_dense(self.qkv, x, self.dtype)
         qkv = qkv.reshape(b, s, 3, self.heads, self.hidden // self.heads)
-        out = attention_bshd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        with span("attention"):
+            out = attention_bshd(q, k, v)
+        backward_span("attention", out, (q, k, v))
         out = out.reshape(b, s, self.hidden)
         return layer_dense(self.proj, out, self.dtype)
 
