@@ -43,6 +43,15 @@ Phases of the one-card run, one JSON line each on stdout:
     loop's on the card over 3 steps, one launch a step; timed beside its
     bound (28 bytes an element), the per-leaf loop's time and device time,
     and ``torch._fused_adamw_``'s time as a yardstick the port never calls;
+2c. flash_attention: the fused attention kernels (forward and backward)
+    through ``attention_bshd`` on the packed qkv views at the shapes the
+    cells and the smoke's models call it (VideoMAE's decoder and encoder,
+    ViT-MAE's encoder and head-dim-32 decoder in the SSL recipe, the VTT's
+    head-dim-256 frame and temporal blocks): against their plain version
+    and, beside the torch bf16 expression, against the f32 truth; timed
+    beside their bound, the expression's time and SDPA's (a yardstick the
+    port never calls), with each instantiation's registers and spills;
+    the VTT, SSL and probe paths below run through them, counted by path;
 3. main_path: ``python -m video_spike_torch.cli.train`` (called in-process)
    trains the full-width Linear model on a synthetic 128x128 session in
    the production configuration (bf16 SR store, lean adafactor, fused
@@ -710,6 +719,180 @@ def phase_fused_adamw() -> dict:
                              f"{len(unequal)} leaves differ "
                              f"({unequal[:10]}), {check_launches} launches "
                              f"for 3 steps")
+    return out
+
+
+# (B, S, H, D) of the fused attention as the cells and the smoke's models
+# call it: VideoMAE-Base's decoder (1,568 tokens) and encoder (160 visible)
+# at 64 clips, ViT-MAE-Base's encoder (21 tokens) and decoder (82, head dim
+# 32) at 384 frames, the VTT's frame (64 patches of 960 frames) and
+# temporal (60 frames) blocks at head dim 256
+FLASH_SHAPES = {"vmae_decoder": (64, 1568, 6, 64),
+                "vmae_encoder": (64, 160, 12, 64),
+                "ssl_encoder": (384, 21, 12, 64),
+                "ssl_decoder": (384, 82, 16, 32),
+                "vtt_frames": (BATCH * T_FRAMES // 2, 64, 2, 256),
+                "vtt_time": (BATCH, T_FRAMES // 2, 2, 256)}
+FLASH_CHECK_ROWS = 2         # batch rows held against the f32 truth
+# batch rows of the plain version at a time, at most ~1 GiB of f32 scores
+FLASH_PLAIN_BYTES = 1 << 30
+# kernel against its plain version: the output within 2^-8 of the plain
+# version's largest element, each gradient within a bf16 ulp of its
+# largest (2^-7); against the f32 truth, within twice the torch bf16
+# expression's error (tests/test_torch_kernels_gpu.py)
+FLASH_OUT_TOL, FLASH_GRAD_TOL = 2.0**-8, 2.0**-7
+
+
+def _attention_counts() -> list:
+    """[forward, backward] launches of the fused attention since the last
+    ``_attention_reset()``."""
+    from video_spike_torch.ops.attention import attention_bshd
+
+    return [attention_bshd.launches, attention_bshd.backward_launches]
+
+
+def _attention_reset() -> None:
+    from video_spike_torch.ops.attention import attention_bshd
+
+    attention_bshd.launches = attention_bshd.backward_launches = 0
+
+
+def _flash_vs_plain(got, qkv, dout) -> dict:
+    """max |kernel - plain| / max |plain| of the output and each gradient
+    over the whole batch, the plain version run over batch chunks of the
+    same inputs."""
+    from video_spike_torch.ops import attention as att
+
+    b, s, _, h, _ = qkv.shape
+    rows = max(1, FLASH_PLAIN_BYTES // (h * s * s * 4))
+    q, k, v = qkv.detach().unbind(2)
+    diff, scale = [0.0] * 4, [0.0] * 4
+    for i in range(0, b, rows):
+        at = slice(i, i + rows)
+        po, lse = att.flash_attention_plain(q[at], k[at], v[at])
+        plain = (po, *att.flash_attention_plain_backward(
+            q[at], k[at], v[at], po, lse, dout[at]))
+        for j, (g, p) in enumerate(zip(got, plain)):
+            diff[j] = max(diff[j], (g[at].float() - p.float()).abs().max()
+                          .item())
+            scale[j] = max(scale[j], p.float().abs().max().item())
+        del po, lse, plain
+    return {key: d / max(m, 1e-30)
+            for key, d, m in zip(("out", "dq", "dk", "dv"), diff, scale)}
+
+
+def phase_flash_attention() -> dict:
+    """The fused attention at ``FLASH_SHAPES``, forward and backward
+    through ``attention_bshd`` and autograd on the packed qkv projection's
+    views: the full-shape call that is timed, held against the plain
+    version over the whole batch; on ``FLASH_CHECK_ROWS`` batch rows,
+    against the f32 truth beside the torch bf16 expression; then at
+    the full shape forward alone and forward plus backward (CUDA events,
+    the median of REPS windows), beside the bound (``benchmark/benchlib/
+    videomae_counts.py``: the six products at the bf16 peak or the eight
+    bf16 tensors at the HBM rate, the larger), the torch expression's time
+    and ``F.scaled_dot_product_attention``'s (``library_ms``, a yardstick
+    the port never calls); registers and spill bytes of each
+    instantiation as the runtime reports them."""
+    import torch
+    import torch.nn.functional as F
+
+    from benchmark.benchlib import videomae_counts as vc
+    from video_spike_torch.ops import attention as att
+
+    dev = torch.device("cuda")
+    attrs = {str(d): att.kernel_attributes(d) for d in att.HEAD_DIMS}
+    _attention_reset()
+
+    def rel(got, ref):
+        return ((got.float() - ref.float()).abs().max()
+                / ref.float().abs().max().clamp_min(1e-30)).item()
+
+    def run(fn, qkv, dout):
+        qkv.grad = None
+        out = fn(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        out.backward(dout)
+        return out.detach(), *qkv.grad.unbind(2)
+
+    shapes, failures = {}, []
+    for name, (b, s, h, d) in FLASH_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(31)
+        qkv = torch.randn((b, s, 3, h, d), generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_(True)
+        dout = torch.randn((b, s, h, d), generator=gen, device=dev).to(
+            torch.bfloat16).float()
+        got = run(att.attention_bshd, qkv, dout)
+        check = {"vs_plain": _flash_vs_plain(got, qkv, dout)}
+        del got
+        small = qkv.detach()[:FLASH_CHECK_ROWS].clone().requires_grad_(True)
+        sd = dout[:FLASH_CHECK_ROWS]
+        got = run(att.attention_bshd, small, sd)
+        truth = run(att.attention_torch,
+                    small.detach().float().requires_grad_(True), sd)
+        expr = run(att.attention_torch, small, sd)
+        keys = ("out", "dq", "dk", "dv")
+        check["vs_f32"] = dict(zip(keys, map(rel, got, truth)))
+        check["expression_vs_f32"] = dict(zip(keys, map(rel, expr, truth)))
+        del got, truth, expr, small
+        for key in keys:
+            tol = FLASH_OUT_TOL if key == "out" else FLASH_GRAD_TOL
+            if not (check["vs_plain"][key] <= tol and check["vs_f32"][key]
+                    <= 2 * check["expression_vs_f32"][key]):
+                failures.append((name, key))
+
+        qv, kv, vv = qkv.detach().unbind(2)
+        iters = max(3, min(50, int(2e10 // (b * s * s * h * d))))
+        with torch.no_grad():
+            fwd_ms = statistics.median(cuda_ms(
+                lambda: att.attention_bshd(qv, kv, vv), iters)
+                for _ in range(REPS))
+        ms = statistics.median(cuda_ms(
+            lambda: run(att.attention_bshd, qkv, dout), iters)
+            for _ in range(REPS))
+        plain_ms = cuda_ms(lambda: run(att.attention_torch, qkv, dout),
+                           max(2, iters // 8), 1)
+        heads = [x.detach().permute(0, 2, 1, 3).contiguous()
+                 .requires_grad_(True) for x in (qv, kv, vv)]
+        dout_h = dout.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous()
+
+        def library():
+            for x in heads:
+                x.grad = None
+            F.scaled_dot_product_attention(*heads).backward(dout_h)
+
+        library_ms = statistics.median(cuda_ms(library, iters)
+                                       for _ in range(REPS))
+        flops = vc.attention_flops(b, s, h * d)
+        nbytes = vc.attention_bytes(b, s, h * d)
+        bound_ms = vc.attention_bound_s(flops, nbytes) * 1e3
+        shapes[name] = {
+            "shape": [b, s, h, d], "ms": ms, "fwd_ms": fwd_ms,
+            "bound_ms": bound_ms,
+            "bound_by": ("flops" if flops / BF16_FLOP_PER_S
+                         >= nbytes / HBM_BYTES_PER_S else "bytes"),
+            "share_of_bound": bound_ms / ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "tflop_per_s": flops / ms / 1e9,
+            **check}
+        del qkv, dout, heads, dout_h, qv, kv, vv
+        torch.cuda.empty_cache()
+    launches = _attention_counts()
+    head = shapes["vmae_decoder"]
+    out = {"name": "flash_attention", "route": "cuda",
+           "source": ["video_spike_torch/csrc/flash_attention_fwd.cu",
+                      "video_spike_torch/csrc/flash_attention_bwd.cu"],
+           "replaces": None, "ms": head["ms"], "plain_ms": head["plain_ms"],
+           "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+           "library_ms": head["library_ms"],
+           "share_of_bound": head["share_of_bound"],
+           "max_rel_err_vs_plain": max(v for r in shapes.values()
+                                       for v in r["vs_plain"].values()),
+           "shapes": shapes, "attributes": attrs,
+           "launches_in_checks": {"forward": launches[0],
+                                  "backward": launches[1]}}
+    emit("flash_attention", **out)
+    if failures:
+        raise AssertionError(f"flash attention outside its tolerances at "
+                             f"{failures}: {shapes}")
     return out
 
 
@@ -2095,6 +2278,7 @@ import torch
 from chip_smoke import card_report, tensor_vtt_run
 from video_spike_torch.core.runtime import exit_rank, setup_runtime
 from video_spike_torch.ops import fused_readout as fr
+from video_spike_torch.ops.attention import attention_bshd
 from video_spike_torch.parallel import multihost as mh
 
 cfg = json.loads(sys.argv[1])
@@ -2102,7 +2286,10 @@ assert setup_runtime("cuda")
 fr.apply_scaled_outer.launches = 0
 runs = []
 for d in ("f32", "bf16"):
+    attention_bshd.launches = attention_bshd.backward_launches = 0
     run, full = tensor_vtt_run(d)
+    run["attention_launches"] = [attention_bshd.launches,
+                                 attention_bshd.backward_launches]
     if mh.process_index() == 0:
         torch.save(full, f"{cfg['out']}_{d}.pt")
     runs.append(run)
@@ -2122,6 +2309,7 @@ import numpy as np
 from video_spike_torch.core.runtime import exit_rank, setup_runtime
 from video_spike_torch.models.vtt import vtt_sharding_rules
 from video_spike_torch.ops import fused_readout as fr
+from video_spike_torch.ops.attention import attention_bshd
 from video_spike_torch.parallel import multihost as mh
 from video_spike_torch.parallel.mesh import make_mesh
 from video_spike_torch.serve.session import InferenceSession
@@ -2134,12 +2322,14 @@ session = InferenceSession.from_checkpoint(
     sharding_rules=vtt_sharding_rules)
 rows = np.load(cfg["rows"])
 sids = np.load(cfg["sids"])
+attention_bshd.launches = attention_bshd.backward_launches = 0
 outs = {str(n): session.predict(rows[:n], sids[:n]) for n in cfg["sizes"]}
+attention = [attention_bshd.launches, attention_bshd.backward_launches]
 shapes = {k: list(v.shape) for k, v in session.params.items()
           if k in ("session_heads", "frame_encoder.Block_0.Dense_0.kernel")}
 np.savez(f"{cfg['out']}{mh.process_index()}.npz",
          shapes=json.dumps(shapes), launches=fr.apply_scaled_outer.launches,
-         **outs)
+         attention=np.asarray(attention), **outs)
 exit_rank()
 """
 
@@ -2276,7 +2466,9 @@ def _tp_vtt(work: Path, backend: str = "gloo") -> dict:
             "bytes_per_step_by_rank": [run["bytes_per_step"]
                                        for run in runs],
             "peak_mem_gb_by_rank": [run["peak_mem_gb"] for run in runs],
-            "one_process_peak_mem_gb": one["peak_mem_gb"]}
+            "one_process_peak_mem_gb": one["peak_mem_gb"],
+            "attention_launches_by_rank": [run["attention_launches"]
+                                           for run in runs]}
         if loss_err > rtol or diff["max_abs"] > atol \
                 or losses[-1] == losses[0]:
             raise AssertionError(f"tensor-sharded VTT ({name}) vs the "
@@ -2317,6 +2509,8 @@ def _tp_serve(work: Path) -> dict:
            "max_rel_err": errs, "bound": SERVE_REL_BOUND,
            "shard_shapes": shapes[0],
            "launches": sum(int(s["launches"]) for s in served),
+           "attention_launches_by_rank": [s["attention"].tolist()
+                                          for s in served],
            "launch_seconds": seconds}
     want = {"session_heads": [len(VTT_NEURONS), 512, max(VTT_NEURONS) // 2],
             "frame_encoder.Block_0.Dense_0.kernel": [512, 512]}
@@ -2621,11 +2815,13 @@ def phase_vtt_main_path(work: Path) -> dict:
     base = vtt_args(work, "vtt_logs")
     torch.cuda.reset_peak_memory_stats()
     fr.apply_scaled_outer.launches = 0
+    _attention_reset()
     t0 = time.perf_counter()
     res = train_cli.main(base + ["--num_epochs", "2"])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     fused_launches = fr.apply_scaled_outer.launches
+    attention = _attention_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if res["n_params"] != VTT_PARAMS:
         raise AssertionError(f"VTT has {res['n_params']} params, "
@@ -2672,6 +2868,7 @@ def phase_vtt_main_path(work: Path) -> dict:
            "artifacts": artifacts, "train_seconds": train_s,
            "peak_mem_gb": peak_gb, "allow_tf32": False,
            "fused_readout_launches": fused_launches,
+           "attention_launches": attention,
            "resume_start_epoch": res2["start_epoch"],
            "resume_steps": resumed_steps,
            "resume_train_loss": res2["train_losses"][0]}
@@ -2896,6 +3093,7 @@ def phase_ssl_main_path(work: Path) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     fr.apply_scaled_outer.launches = 0
     fused_adamw.step_.launches = 0
+    _attention_reset()
     with contextlib.chdir(run):
         _, trainer, _, _ = pretrain.build_trainer(args, data)
         trainer.max_steps = SSL_FIRST_STEPS
@@ -2927,6 +3125,7 @@ def phase_ssl_main_path(work: Path) -> tuple:
         embeddings = np.load(res["path"], allow_pickle=True).item()[SSL_EID]
     launches = fr.apply_scaled_outer.launches
     adamw_launches = fused_adamw.step_.launches
+    attention = _attention_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     _free_card()
     losses = first["losses"] + res["train_losses"]
@@ -2949,6 +3148,7 @@ def phase_ssl_main_path(work: Path) -> tuple:
            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
            "fused_readout_launches": launches,
            "fused_adamw_launches": adamw_launches,
+           "attention_launches": attention,
            "background_flushes": flushes, "sidecar_step": sidecar["step"],
            "checkpoint_step": ckpt_step,
            "resume_mid_epoch": [l for l in resume_log.lines
@@ -3136,10 +3336,11 @@ def probe_args(work: Path, log_dir: str, backbone=None) -> list:
             "--batch_size", str(PROBE_BATCH), "--device", "cuda"]
 
 
-def phase_probe_pretrain(work: Path) -> str:
+def phase_probe_pretrain(work: Path) -> tuple:
     """``cli.pretrain_videomae`` at full width (VideoMAEForPreTraining,
     94,222,080 parameters, mask ratio 0.9) for PRETRAIN_STEPS steps at batch
-    8 on the Linear phase's fixture; returns the backbone.pt path."""
+    8 on the Linear phase's fixture; returns (the backbone.pt path, the
+    phase's numbers)."""
     import torch
 
     from video_spike_torch.cli import pretrain_videomae
@@ -3147,6 +3348,7 @@ def phase_probe_pretrain(work: Path) -> str:
 
     torch.cuda.reset_peak_memory_stats()
     fr.apply_scaled_outer.launches = 0
+    _attention_reset()
     t0 = time.perf_counter()
     res = pretrain_videomae.main(
         ["--model_config", str(ROOT / PROBE_YAML),
@@ -3158,11 +3360,13 @@ def phase_probe_pretrain(work: Path) -> str:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = fr.apply_scaled_outer.launches
+    attention = _attention_counts()
     out = {"n_params": res["n_params"], "steps": len(res["losses"]),
            "losses_first_last": [res["losses"][0], res["losses"][-1]],
            "path_exists": Path(res["path"]).is_file(), "seconds": seconds,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "fused_readout_launches": launches}
+           "fused_readout_launches": launches,
+           "attention_launches": attention}
     emit("probe_pretrain", **out)
     if res["n_params"] != PRETRAIN_PARAMS:
         raise AssertionError(f"VideoMAEForPreTraining has {res['n_params']} "
@@ -3173,7 +3377,7 @@ def phase_probe_pretrain(work: Path) -> str:
     if not out["path_exists"] or launches:
         raise AssertionError(f"backbone.pt missing or launches: {out}")
     _free_card()
-    return res["path"]
+    return res["path"], out
 
 
 def _assert_backbone_is(params: dict, ckpt: dict, what: str) -> None:
@@ -3203,11 +3407,13 @@ def phase_probe_main_path(work: Path, backbone: str) -> dict:
     base = probe_args(work, "probe_logs", backbone)
     torch.cuda.reset_peak_memory_stats()
     fr.apply_scaled_outer.launches = 0
+    _attention_reset()
     t0 = time.perf_counter()
     res = train_cli.main(base + ["--num_epochs", "2"])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = fr.apply_scaled_outer.launches
+    attention = _attention_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = res["global_step"]
     log_dir = Path(res["log_dir"])
@@ -3222,6 +3428,7 @@ def phase_probe_main_path(work: Path, backbone: str) -> dict:
     test = res["test_res"]
     out = {"n_params": res["n_params"], "train_steps": steps,
            "launches": launches, "fused_readout": res["fused_readout"],
+           "attention_launches": attention,
            "features_staged": res["features_staged"],
            "train_losses": res["train_losses"], "eval": res["eval_history"],
            "test": test, "artifacts": artifacts, "train_seconds": train_s,
@@ -3582,8 +3789,10 @@ def phase_vtt_serve(work: Path) -> dict:
     session = _vtt_session(work)
     video, _ = _vtt_trials(work, 3)
     sids = np.asarray([4, 0, 2], np.int32)
+    _attention_reset()
     got = session.predict(video, session_ids=sids)
     got0 = session.predict(video)
+    attention = _attention_counts()
     with torch.inference_mode():
         v = torch.from_numpy(video).cuda()
         ref = session.model(v, torch.from_numpy(sids).long().cuda())
@@ -3597,6 +3806,7 @@ def phase_vtt_serve(work: Path) -> dict:
            "shape": list(got.shape), "session_ids": sids.tolist(),
            "stats": session.stats, "max_rel_err": errs,
            "bound": SERVE_REL_BOUND, "fused_readout_launches": launches,
+           "attention_launches": attention,
            "phase_seconds": time.perf_counter() - t_phase}
     emit("vtt_serve", **out)
     del session
@@ -3630,6 +3840,7 @@ from video_spike_torch.core.runtime import exit_rank, setup_runtime
 from video_spike_torch.models.linear import first_layer_sharding_rules
 from video_spike_torch.models.vtt import vtt_sharding_rules
 from video_spike_torch.ops import fused_readout as fr
+from video_spike_torch.ops.attention import attention_bshd
 from video_spike_torch.parallel import multihost as mh
 from video_spike_torch.parallel import tensor
 from video_spike_torch.parallel.mesh import make_mesh
@@ -3651,6 +3862,7 @@ for model, rules in cfg["cases"]:
     sids = np.load(c["sids"]) if "sids" in c else None
     r = {"gathered_leaves": session.stats["gathered_leaves"],
          "shard_shapes": {}, "predict_ms": {}, "bytes_per_request": {}}
+    attention_bshd.launches = attention_bshd.backward_launches = 0
     for n in c["sizes"]:
         args = (rows[:n],) + (() if sids is None else (sids[:n],))
         b0 = (tensor.sum_over_model.bytes, tensor.gather_last.bytes)
@@ -3665,6 +3877,8 @@ for model, rules in cfg["cases"]:
             session.predict(*args)
             ms.append((time.perf_counter() - t0) * 1e3)
         r["predict_ms"][str(n)] = sorted(ms)[len(ms) // 2]
+    r["attention_launches"] = [attention_bshd.launches,
+                               attention_bshd.backward_launches]
     r["shard_shapes"] = {k: list(v.shape) for k, v in session.params.items()}
     report[f"{model}_{rules}"] = r
     del session
@@ -3788,10 +4002,15 @@ def phase_split_serve_path(work: Path, world: int = 2,
                                     for r in reports],
                 "max_rel_err": errs, "predict_ms_split": r0["predict_ms"],
                 "predict_ms_one_rank": ms,
-                "bytes_per_request": r0["bytes_per_request"]}
+                "bytes_per_request": r0["bytes_per_request"],
+                "attention_launches_by_rank": [r[key]["attention_launches"]
+                                               for r in reports]}
             if (max(errs.values()) > SERVE_REL_BOUND or not halved
                     or any(r[key]["gathered_leaves"] for r in reports)):
                 bad.append(key)
+            if model == "vtt" and not all(
+                    r[key]["attention_launches"][0] for r in reports):
+                bad.append(f"{key}: the fused attention did not run")
         del one
         _free_card()
     out["phase_seconds"] = time.perf_counter() - t_phase
@@ -3851,22 +4070,31 @@ def phase_export(work: Path) -> dict:
     del session
     _free_card()
 
+    # the VTT's attention: the export's one eager forward, then each call
+    # of the loaded program, launch the fused attention kernel
     session = _vtt_session(work)
     video, sids = _vtt_trials(work, EXPORT_BATCH)
     torch.cuda.reset_peak_memory_stats()
+    _attention_reset()
     t0 = time.perf_counter()
     path = save_exported(session.model, session.params, video,
                          out_dir / "vtt.pt2", session_ids=sids)
     export_s = time.perf_counter() - t0
+    eager = _attention_counts()
     fn = load_exported(path)
+    _attention_reset()
+    got = {b: fn(video[:b], sids[:b].astype(np.int64)).float().cpu().numpy()
+           for b in EXPORT_RUN_BATCHES}
+    program = _attention_counts()
     result["vtt"] = {
         "polymorphic": fn.polymorphic, "seconds": export_s,
         "bytes": Path(path).stat().st_size,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "max_rel_err": {str(b): _rel_err(
-            fn(video[:b], sids[:b].astype(np.int64)).float().cpu().numpy(),
-            session.predict(video[:b], session_ids=sids[:b]))
-            for b in EXPORT_RUN_BATCHES}}
+            got[b], session.predict(video[:b], session_ids=sids[:b]))
+            for b in EXPORT_RUN_BATCHES},
+        "attention_launches": {"export_forward": eager,
+                               "program": program}}
     del session, fn
     _free_card()
     launches = fr.apply_scaled_outer.launches
@@ -3874,7 +4102,10 @@ def phase_export(work: Path) -> dict:
            "fused_readout_launches": launches,
            "phase_seconds": time.perf_counter() - t_phase}
     emit("export", **out)
-    if launches or not all(r["polymorphic"] for r in result.values()) \
+    kernel_ran = (eager[0] > 0 and eager[1] == program[1] == 0
+                  and program[0] == len(EXPORT_RUN_BATCHES) * eager[0])
+    if launches or not kernel_ran \
+            or not all(r["polymorphic"] for r in result.values()) \
             or any(e > SERVE_REL_BOUND for r in result.values()
                    for e in r["max_rel_err"].values()):
         raise AssertionError(f"export: {out}")
@@ -5116,6 +5347,7 @@ def main(argv=None) -> int:
     phase_build()
     kernel = phase_kernel()
     adamw = phase_fused_adamw()
+    attention = phase_flash_attention()
     with tempfile.TemporaryDirectory(prefix="vst_smoke_") as tmp:
         work = Path(tmp)
         main_path = phase_main_path(work)
@@ -5125,7 +5357,7 @@ def main(argv=None) -> int:
         stream = phase_stream_main_path(work, step_time["ms_per_step"])
         dist = phase_dist_main_path(work, step_time["ms_per_step"])
         phase_optim_card_vs_cpu()
-        phase_vtt_main_path(work)
+        vtt = phase_vtt_main_path(work)
         phase_vtt_card_vs_cpu()
         phase_vtt_step_time(work)
         tensor = phase_tensor_main_path(work)
@@ -5135,7 +5367,7 @@ def main(argv=None) -> int:
         phase_ssl_step_time(work, ssl)
         del ssl
         _free_card()
-        backbone = phase_probe_pretrain(work)
+        backbone, vmae = phase_probe_pretrain(work)
         probe = phase_probe_main_path(work, backbone)
         phase_probe_card_vs_cpu()
         phase_probe_step_time(work)
@@ -5187,7 +5419,34 @@ def main(argv=None) -> int:
     kernel["b64"]["launches"] = dist["dp4"]["launches"]
     adamw["launches"] = ssl_path["fused_adamw_launches"]
     adamw["launches_by_path"] = {"ssl": ssl_path["fused_adamw_launches"]}
-    print(json.dumps({"kernels": [kernel, adamw]}), flush=True)
+    # [forward, backward] launches of the fused attention in each path's
+    # own run, counted from 0 just before its entry point (rank 0 where
+    # ranks share the card); the tensor-sharded VTT's f32 run takes the
+    # torch expression, so 0
+    tp_vtt = {d: tensor["vtt"][d]["attention_launches_by_rank"][0]
+              for d in ("bf16", "f32")}
+    by_path = {
+        "vtt": vtt["attention_launches"],
+        "tensor_vtt_bf16": tp_vtt["bf16"], "tensor_vtt_f32": tp_vtt["f32"],
+        "tensor_serve": tensor["serve"]["attention_launches_by_rank"][0],
+        "ssl": ssl_path["attention_launches"],
+        "vmae_pretrain": vmae["attention_launches"],
+        "probe": probe["attention_launches"],
+        "vtt_serve": vtt_serve["attention_launches"],
+        "split_serve_vtt": split_serve["cases"]["vtt_first512"][
+            "attention_launches_by_rank"][0],
+        "export_forward": export["vtt"]["attention_launches"][
+            "export_forward"],
+        "exported_program": export["vtt"]["attention_launches"]["program"]}
+    attention["launches_by_path"] = by_path
+    training = ("vtt", "tensor_vtt_bf16", "ssl", "vmae_pretrain")
+    if not all(f > 0 for p, (f, _) in by_path.items()
+               if p != "tensor_vtt_f32") \
+            or not all(by_path[p][1] > 0 for p in training) \
+            or by_path["tensor_vtt_f32"] != [0, 0]:
+        raise AssertionError(f"the fused attention did not run on every "
+                             f"bf16 path, or ran on f32: {by_path}")
+    print(json.dumps({"kernels": [kernel, adamw, attention]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -25,6 +25,18 @@ other's rank-B factors) and end with bitwise-equal kernels; two gloo
 ranks run a column-split Dense (``parallel/tensor``) on CUDA tensors
 against the unsplit layer.
 
+The fused attention (``csrc/flash_attention_{fwd,bwd}.cu``) is held
+against its plain version (``ops/attention.flash_attention_plain`` and
+``..._backward``, the kernels' own arithmetic, on the card) at every (head
+dim, sequence) the port's models use, through ``attention_bshd`` and
+autograd on the packed qkv projection's strided views: the output within
+2^-8 of the plain version's largest element (the sums run in another
+order), each gradient within one bf16 ulp of its largest element (2^-7 of
+it: a bf16 rounding may flip, and dQ's partial sums meet in atomic adds
+in no fixed order). Against the f32 truth (the torch expression and its
+gradients on the f32 upcast) the kernels' error is at most twice the torch
+bf16 expression's.
+
 The multi-tensor AdamW (``csrc/fused_adamw.cu``) is held bitwise against
 the per-leaf loop on the card (``AdamW.update`` + ``apply_updates``, the
 same f32 operations in the same order) over 3 steps: at the SSL model's 255
@@ -43,7 +55,8 @@ import pytest
 import torch
 import yaml
 
-from video_spike_torch.models.vit_mae import ContrastViTMAE
+from video_spike_torch.models.vit_mae import ContrastViTMAE, SelfAttention
+from video_spike_torch.ops import attention as tatt
 from video_spike_torch.ops import fused_adamw
 from video_spike_torch.ops import fused_readout as tfr
 from video_spike_torch.ops.optim import (
@@ -476,3 +489,225 @@ def test_fused_adamw_cuda_leaves_never_take_the_plain_version(cuda_device,
     case()
     torch.cuda.synchronize()
     assert fused_adamw.step_.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# the fused attention
+# ---------------------------------------------------------------------------
+
+# (B, S, H, D) as the port's models call it: VideoMAE's encoder (160
+# visible tokens) and decoder (1,568), the probe's backbone (1,568, forward
+# only there), ViT-MAE's encoder (21) and decoder (82, head dim 32) in the
+# SSL recipe, the VTT's frame (64 patches) and temporal (60 frames) blocks
+# at head dim 256; then ragged and tiny ones
+FLASH_SHAPES = [(4, 160, 12, 64), (2, 1568, 6, 64), (2, 1568, 12, 64),
+                (16, 21, 12, 64), (16, 82, 16, 32), (8, 64, 2, 256),
+                (8, 60, 2, 256), (3, 130, 2, 256), (2, 5, 1, 32),
+                (1, 3, 1, 64)]
+
+
+def _flash_case(shape, device, seed):
+    b, s, h, d = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((b, s, 3, h, d), generator=g, device=device).to(
+        torch.bfloat16).requires_grad_(True)
+    dout = torch.randn((b, s, h, d), generator=g, device=device).to(
+        torch.bfloat16).float()
+    return qkv, dout
+
+
+def _flash_run(fn, qkv, dout):
+    """fn(q, k, v) on the packed views, and the gradients of q, k, v."""
+    qkv.grad = None
+    out = fn(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    out.backward(dout)
+    return out.detach(), *qkv.grad.unbind(2)
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_attention_matches_its_plain_version(cuda_device, shape):
+    qkv, dout = _flash_case(shape, cuda_device, 11)
+    q, k, v = qkv.detach().unbind(2)
+    assert all(tatt._kernel_view(x) is x for x in (q, k, v))   # in place
+    before = (tatt.attention_bshd.launches,
+              tatt.attention_bshd.backward_launches)
+    got = _flash_run(tatt.attention_bshd, qkv, dout)
+    torch.cuda.synchronize()
+    assert (tatt.attention_bshd.launches,
+            tatt.attention_bshd.backward_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    out, lse = tatt.flash_attention_plain(q, k, v)
+    ref = (out, *tatt.flash_attention_plain_backward(q, k, v, out, lse,
+                                                     dout))
+    assert got[0].dtype == torch.float32
+    assert all(x.dtype == torch.bfloat16 for x in got[1:])
+    assert _rel(got[0], ref[0]) <= 2.0**-8, _rel(got[0], ref[0])
+    for name, a, b in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+        assert _rel(a, b) <= 2.0**-7, (name, _rel(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 160, 12, 64), (2, 1568, 6, 64),
+                                   (16, 82, 16, 32), (8, 64, 2, 256)])
+def test_flash_attention_error_within_twice_the_expression(cuda_device,
+                                                           shape):
+    qkv, dout = _flash_case(shape, cuda_device, 12)
+    truth = _flash_run(tatt.attention_torch,
+                       qkv.detach().float().requires_grad_(True), dout)
+    expr = _flash_run(tatt.attention_torch, qkv, dout)
+    got = _flash_run(tatt.attention_bshd, qkv, dout)
+    for name, a, e, t in zip(("out", "dq", "dk", "dv"), got, expr, truth):
+        assert _rel(a, t) <= 2 * _rel(e, t), (name, _rel(a, t), _rel(e, t))
+
+
+@pytest.mark.gpu
+def test_flash_attention_reads_strided_views_in_place(cuda_device):
+    """The packed qkv views are read through their strides: the same
+    output, bitwise, as from contiguous copies (the forward's sums run in
+    a fixed order), and dk, dv bitwise (dq's atomic adds meet in no fixed
+    order); an unaligned view is copied first and agrees too."""
+    qkv, dout = _flash_case((4, 160, 12, 64), cuda_device, 13)
+    views = _flash_run(tatt.attention_bshd, qkv, dout)
+    copies = _flash_run(lambda q, k, v: tatt.attention_bshd(
+        q.contiguous(), k.contiguous(), v.contiguous()), qkv, dout)
+    assert torch.equal(views[0], copies[0])
+    assert torch.equal(views[2], copies[2]) and torch.equal(views[3],
+                                                            copies[3])
+    assert _rel(views[1], copies[1]) <= 2.0**-7
+    flat = torch.zeros(qkv.numel() + 1, dtype=torch.bfloat16,
+                       device=cuda_device)
+    odd = flat[1:].view(qkv.shape)          # 2 bytes off 16-byte alignment
+    odd.copy_(qkv.detach())
+    q, k, v = odd.unbind(2)
+    assert tatt._kernel_view(q) is not q
+    out = tatt.attention_bshd(q, k, v)
+    assert torch.equal(out, views[0])
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_never_takes_the_torch_expression(cuda_device,
+                                                    monkeypatch):
+    """A SelfAttention on CUDA bf16 goes through the kernels, forward and
+    backward (the counters), and never through the torch expression;
+    f32 CUDA inputs take the expression and launch nothing; an
+    uninstantiated head dim raises."""
+    expression = tatt.attention_torch
+    calls = []
+
+    def spy(*args):
+        calls.append(args[0].dtype)
+        return expression(*args)
+
+    monkeypatch.setattr(tatt, "attention_torch", spy)
+    gen = torch.Generator().manual_seed(0)
+    layer = SelfAttention(768, 12)
+    layer.reset_parameters(gen)
+    layer.to(cuda_device)
+    x = torch.randn((4, 160, 768), device=cuda_device, requires_grad=True)
+    before = (tatt.attention_bshd.launches,
+              tatt.attention_bshd.backward_launches)
+    layer(x).float().sum().backward()
+    torch.cuda.synchronize()
+    assert calls == []
+    assert (tatt.attention_bshd.launches,
+            tatt.attention_bshd.backward_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    q = torch.randn((2, 21, 12, 64), device=cuda_device)
+    out = tatt.attention_bshd(q, q, q)
+    assert calls == [torch.float32] and out.dtype == torch.float32
+    assert tatt.attention_bshd.launches == before[0] + 1
+    q = torch.randn((2, 21, 4, 48), device=cuda_device).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 48"):
+        tatt.attention_bshd(q, q, q)
+    with pytest.raises(ValueError, match="bf16 on one card"):
+        tatt.attention_bshd(q[..., :32], q[..., :32].float(), q[..., :32])
+    assert len(calls) == 1
+
+
+@pytest.mark.gpu
+def test_attention_spans_see_the_kernels(cuda_device):
+    """Under a profiler, the ``vs.attention`` ranges (forward on this
+    thread, backward on autograd's) hold the launches of the forward and
+    backward kernels, and no softmax of the torch expression."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(0)
+    layer = SelfAttention(384, 6)
+    layer.reset_parameters(gen)
+    layer.to(cuda_device)
+    x = torch.randn((2, 1568, 384), device=cuda_device, requires_grad=True)
+    layer(x).float().sum().backward()                  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        layer(x).float().sum().backward()
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges, ops = {}, {}
+    for ev in events:
+        if ev.device_type() == cuda:
+            continue
+        if ev.name() == "vs.attention":
+            ranges.setdefault(ev.start_thread_id(), []).append(
+                (ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+        elif ev.linked_correlation_id() == 0 and ev.correlation_id():
+            ops[ev.correlation_id()] = (ev.start_thread_id(), ev.start_ns())
+    assert len(ranges) == 2, ranges     # the forward's and autograd's thread
+    inside = set()
+    for ev in events:
+        if ev.device_type() != cuda or not ev.linked_correlation_id():
+            continue
+        thread, t0 = ops.get(ev.linked_correlation_id(), (None, 0))
+        if any(a <= t0 <= b for a, b in ranges.get(thread, ())):
+            inside.add(ev.name())
+    for kernel in ("fwd_kernel<64>", "bwd_kernel<64>", "delta_kernel<64>",
+                   "dq_kernel"):
+        assert any(kernel in name for name in inside), (kernel, inside)
+    assert not any("oftmax" in name for name in inside), inside
+
+
+@pytest.mark.gpu
+def test_the_kernel_op_passes_its_registration_checks(cuda_device):
+    """``vst::flash_attention`` and its backward op agree with their fake
+    implementations and autograd registration (``torch.library.opcheck``)
+    on the packed qkv views."""
+    qkv, _ = _flash_case((2, 82, 4, 64), cuda_device, 14)
+    q, k, v = qkv.unbind(2)
+    torch.library.opcheck(tatt.flash_attention, (q, k, v))
+
+
+@pytest.mark.gpu
+def test_an_exported_attention_launches_the_kernel(cuda_device, tmp_path):
+    """``torch.export`` of a bf16 SelfAttention on the card, saved and
+    loaded back, holds ``vst::flash_attention`` and launches the kernel
+    once a call, at any batch, within a bf16 ulp of the eager layer's
+    largest output (the program may order the projections' sums
+    otherwise)."""
+    gen = torch.Generator().manual_seed(0)
+    layer = SelfAttention(512, 2)
+    layer.reset_parameters(gen)
+    layer.to(cuda_device).eval()
+    x = torch.randn((4, 60, 512), device=cuda_device).to(torch.bfloat16)
+    with torch.no_grad():
+        program = torch.export.export(
+            layer, (x,), dynamic_shapes=({0: torch.export.Dim("batch")},))
+    torch.export.save(program, str(tmp_path / "layer.pt2"))
+    loaded = torch.export.load(str(tmp_path / "layer.pt2"))
+    assert any(str(n.target) == "vst.flash_attention.default"
+               for n in loaded.graph.nodes)
+    module = loaded.module()
+    for rows in (3, 4):
+        before = tatt.attention_bshd.launches
+        with torch.inference_mode():
+            got = module(x[:rows])
+            want = layer(x[:rows])
+        torch.cuda.synchronize()
+        assert tatt.attention_bshd.launches == before + 2
+        assert got.shape == want.shape and _rel(got, want) <= 2.0**-7

@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` source exposes a plain C interface. It is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library and loaded with
 ``ctypes``; nothing includes PyTorch's headers, so a build takes seconds.
 Builds go to ``csrc/build/`` (git-ignored) at first use, named by a hash of
-the source and flags, so an edited source is never served a stale library.
+the source, the headers beside it and the flags, so an edited source or
+header is never served a stale library.
 Several sources build in parallel, one ``nvcc`` process each.
 ``build_host`` builds a host C++ library (the shard reader,
 ``native/trialtar.cpp``) with ``g++`` into the same directory, by the same
@@ -46,9 +47,11 @@ def _nvcc() -> str:
 
 
 def lib_path(source: str) -> Path:
-    """Shared library path for ``csrc/<source>``, keyed by content + flags."""
+    """Shared library path for ``csrc/<source>``, keyed by content + flags
+    and by every header in ``csrc/`` (a source may include any of them)."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 

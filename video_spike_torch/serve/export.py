@@ -3,8 +3,11 @@
 Counterpart of ``video_spike_tpu/serve/export.py`` (StableHLO there):
 ``export_forward`` traces ``model(x[, session_ids])`` with the checkpoint's
 params as the exported program's state, and ``save_exported`` writes it as
-one ``.pt2`` file that ``torch.export.load`` runs without the port, its
-configs or its model code.
+one ``.pt2`` file that ``torch.export.load`` runs without the port's configs
+or model code. A program traced on CUDA bf16 attention holds the kernel op
+``vst::flash_attention`` (``ops/attention.py``), and runs the hand-written
+kernels; a process that loads it needs the op library, that is
+``import video_spike_torch.ops.attention``, as ``load_exported`` does.
 
 Batch polymorphism: the batch is exported as a symbolic dimension
 (``torch.export.Dim``) when tracing allows it, so one artifact serves any
@@ -23,6 +26,7 @@ from typing import Callable, Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 
+import video_spike_torch.ops.attention  # noqa: F401  (vst::flash_attention)
 from video_spike_torch.serve.session import prepare_for_inference
 
 _META = "video_spike_torch.json"
