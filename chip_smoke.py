@@ -1670,16 +1670,18 @@ import torch.distributed as dist
 from video_spike_torch.cli import train as train_cli
 from video_spike_torch.core.cli import get_args
 from video_spike_torch.core.runtime import exit_rank
+from video_spike_torch.ops import fused_adamw
 from video_spike_torch.ops import fused_readout as fr
 from video_spike_torch.parallel import multihost as mh
 """ + _CHILD_TIMING + r"""
 cfg = json.loads(sys.argv[1])
-fr.apply_scaled_outer.launches = 0
+fr.apply_scaled_outer.launches = fused_adamw.step_.launches = 0
 res = train_cli.main(cfg["argv"] + ["--num_epochs", "2"])
 launches = fr.apply_scaled_outer.launches
 fr.apply_scaled_outer.launches = 0
 res2 = train_cli.main(cfg["argv"] + ["--num_epochs", "3", "--resume"])
 resume_launches = fr.apply_scaled_outer.launches
+adamw_launches = fused_adamw.step_.launches
 rank, world = mh.process_index(), mh.process_count()
 trainer = train_cli.build_trainer(get_args(cfg["timing_argv"]))
 ms = staged_ms(trainer, cfg["windows"], cfg["epochs"], dist.barrier)
@@ -1708,7 +1710,7 @@ out = {"rank": rank, "world": world, "backend": dist.get_backend(),
        "launches": launches, "replica_checksums": res["replica_checksums"],
        "resume_start_epoch": res2["start_epoch"],
        "resume_steps": res2["global_step"] - res["global_step"],
-       "resume_launches": resume_launches,
+       "resume_launches": resume_launches, "adamw_launches": adamw_launches,
        "resume_replica_checksums": res2["replica_checksums"],
        "test": res["test_res"], "log_dir": res["log_dir"],
        "ms_per_step_windows": ms, "gather_ms": gather_ms,
@@ -1985,15 +1987,19 @@ def phase_dist_main_path(work: Path, staged_ms: float) -> dict:
     if len(r0["replica_checksums"]) != 2 \
             or len(r0["resume_replica_checksums"]) != 1:
         raise AssertionError(f"want a W checksum an epoch: {r0}")
+    # the production optimizer steps through the fused readout: no rank
+    # launches the fused AdamW
     for r in ranks:
         if r["launches"] != r["steps"] or r["steps"] == 0 \
                 or r["resume_launches"] != r["resume_steps"] \
-                or r["resume_steps"] == 0 or r["resume_start_epoch"] != 2:
+                or r["resume_steps"] == 0 or r["resume_start_epoch"] != 2 \
+                or r["adamw_launches"]:
             raise AssertionError(f"rank {r['rank']}: launches "
                                  f"{r['launches']} / steps {r['steps']}, "
                                  f"resume {r['resume_launches']} / "
                                  f"{r['resume_steps']} from epoch "
-                                 f"{r['resume_start_epoch']}")
+                                 f"{r['resume_start_epoch']}, fused AdamW "
+                                 f"{r['adamw_launches']}")
     if not all(math.isfinite(v) for v in r0["train_losses"]):
         raise AssertionError(f"non-finite loss: {r0['train_losses']}")
     run_dir = Path(r0["log_dir"])
@@ -2097,6 +2103,7 @@ def phase_dist_main_path(work: Path, staged_ms: float) -> dict:
            "local_batch": local, "global_batch": BATCH,
            "train_losses": r0["train_losses"], "steps_per_rank": r0["steps"],
            "launches_per_rank": [r["launches"] for r in ranks],
+           "adamw_launches_per_rank": [r["adamw_launches"] for r in ranks],
            "launches": sum(r["launches"] for r in ranks),
            "resume_launches": sum(r["resume_launches"] for r in ranks),
            "replica_checksums": r0["replica_checksums"]
@@ -2277,6 +2284,7 @@ import json, sys
 import torch
 from chip_smoke import card_report, tensor_vtt_run
 from video_spike_torch.core.runtime import exit_rank, setup_runtime
+from video_spike_torch.ops import fused_adamw
 from video_spike_torch.ops import fused_readout as fr
 from video_spike_torch.ops.attention import attention_bshd
 from video_spike_torch.parallel import multihost as mh
@@ -2287,9 +2295,11 @@ fr.apply_scaled_outer.launches = 0
 runs = []
 for d in ("f32", "bf16"):
     attention_bshd.launches = attention_bshd.backward_launches = 0
+    fused_adamw.step_.launches = 0
     run, full = tensor_vtt_run(d)
     run["attention_launches"] = [attention_bshd.launches,
                                  attention_bshd.backward_launches]
+    run["adamw_launches"] = fused_adamw.step_.launches
     if mh.process_index() == 0:
         torch.save(full, f"{cfg['out']}_{d}.pt")
     runs.append(run)
@@ -2468,9 +2478,15 @@ def _tp_vtt(work: Path, backend: str = "gloo") -> dict:
             "peak_mem_gb_by_rank": [run["peak_mem_gb"] for run in runs],
             "one_process_peak_mem_gb": one["peak_mem_gb"],
             "attention_launches_by_rank": [run["attention_launches"]
-                                           for run in runs]}
+                                           for run in runs],
+            "adamw_launches_by_rank": [run["adamw_launches"]
+                                       for run in runs]}
+        # the bare AdamW steps each rank's shards in place: one launch a
+        # step, after the data group's reduction
         if loss_err > rtol or diff["max_abs"] > atol \
-                or losses[-1] == losses[0]:
+                or losses[-1] == losses[0] or any(
+                    run["adamw_launches"] != TP_STEPS + TP_TIMED_STEPS
+                    for run in runs):
             raise AssertionError(f"tensor-sharded VTT ({name}) vs the "
                                  f"unsplit step: {out[name]}")
     _free_card()
@@ -5344,41 +5360,55 @@ def main(argv=None) -> int:
               "smoke run needs one CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from video_spike_torch.ops import fused_adamw
+
+    # this process's fused-AdamW launches in each path's own run (ranks in
+    # child processes are not counted here)
+    adamw_by_path = {}
+
+    def counted(path, phase, *args):
+        fused_adamw.step_.launches = 0
+        out = phase(*args)
+        adamw_by_path[path] = fused_adamw.step_.launches
+        return out
+
     phase_build()
     kernel = phase_kernel()
     adamw = phase_fused_adamw()
     attention = phase_flash_attention()
     with tempfile.TemporaryDirectory(prefix="vst_smoke_") as tmp:
         work = Path(tmp)
-        main_path = phase_main_path(work)
+        main_path = counted("linear", phase_main_path, work)
         step_time = phase_step_time(work)
-        lean = phase_linear_lean_path(work)
-        accum = phase_linear_accum_path(work)
-        stream = phase_stream_main_path(work, step_time["ms_per_step"])
-        dist = phase_dist_main_path(work, step_time["ms_per_step"])
+        lean = counted("linear_lean", phase_linear_lean_path, work)
+        accum = counted("linear_accum", phase_linear_accum_path, work)
+        stream = counted("stream", phase_stream_main_path, work,
+                         step_time["ms_per_step"])
+        dist = counted("dp_parent", phase_dist_main_path, work,
+                       step_time["ms_per_step"])
         phase_optim_card_vs_cpu()
-        vtt = phase_vtt_main_path(work)
+        vtt = counted("vtt", phase_vtt_main_path, work)
         phase_vtt_card_vs_cpu()
         phase_vtt_step_time(work)
-        tensor = phase_tensor_main_path(work)
-        phase_rrr_main_path(work)
-        ssl_path, ssl = phase_ssl_main_path(work)
+        tensor = counted("tensor_parent", phase_tensor_main_path, work)
+        counted("rrr", phase_rrr_main_path, work)
+        ssl_path, ssl = counted("ssl", phase_ssl_main_path, work)
         phase_ssl_card_vs_cpu()
         phase_ssl_step_time(work, ssl)
         del ssl
         _free_card()
-        backbone, vmae = phase_probe_pretrain(work)
-        probe = phase_probe_main_path(work, backbone)
+        backbone, vmae = counted("vmae_pretrain", phase_probe_pretrain, work)
+        probe = counted("probe", phase_probe_main_path, work, backbone)
         phase_probe_card_vs_cpu()
         phase_probe_step_time(work)
-        serve = phase_serve_main_path(work)
-        vtt_serve = phase_vtt_serve(work)
-        split_serve = phase_split_serve_path(work)
-        export = phase_export(work)
-        cebra, cebra_model = phase_cebra_main_path(work)
+        serve = counted("serve", phase_serve_main_path, work)
+        vtt_serve = counted("vtt_serve", phase_vtt_serve, work)
+        split_serve = counted("split_serve", phase_split_serve_path, work)
+        export = counted("export", phase_export, work)
+        cebra, cebra_model = counted("cebra", phase_cebra_main_path, work)
         phase_cebra_card_vs_cpu(work, cebra_model)
         del cebra_model
-        etl = phase_etl_main_path(work)
+        etl = counted("etl", phase_etl_main_path, work)
     # launches on the paths that run the kernel (every other path: 0)
     kernel["launches"] = (main_path["launches"] + lean["launches"]
                           + stream["launches"] + dist["launches"]
@@ -5417,8 +5447,25 @@ def main(argv=None) -> int:
                              f"{kernel['launches_by_path']}")
     kernel["probe"]["launches"] = probe["launches"]
     kernel["b64"]["launches"] = dist["dp4"]["launches"]
-    adamw["launches"] = ssl_path["fused_adamw_launches"]
-    adamw["launches_by_path"] = {"ssl": ssl_path["fused_adamw_launches"]}
+    # a bare AdamW steps in place (ops/step.py): one launch a step on the
+    # SSL, VTT and CEBRA paths; the VideoMAE pretraining step (new tensors
+    # a step), the fused readout's, accumulation's and the frozen probe's
+    # optimizers, and the paths that do not train, launch none; the ranks'
+    # own counts are checked in their phases (dp: 0, tensor-sharded VTT:
+    # one a step)
+    adamw["launches"] = sum(adamw_by_path.values())
+    adamw["launches_by_path"] = adamw_by_path
+    adamw["launches_by_rank"] = {
+        "dp": dist["adamw_launches_per_rank"],
+        **{f"tensor_vtt_{d}": tensor["vtt"][d]["adamw_launches_by_rank"]
+           for d in ("f32", "bf16")}}
+    stepped = ("ssl", "vtt", "cebra")
+    if not all(adamw_by_path[p] > 0 for p in stepped) or any(
+            adamw_by_path[p] for p in adamw_by_path
+            if p not in stepped + ("dp_parent", "tensor_parent")):
+        raise AssertionError(f"the fused AdamW did not run on every bare "
+                             f"AdamW path, or ran on another: "
+                             f"{adamw_by_path}")
     # [forward, backward] launches of the fused attention in each path's
     # own run, counted from 0 just before its entry point (rank 0 where
     # ranks share the card); the tensor-sharded VTT's f32 run takes the

@@ -1,5 +1,6 @@
 """The in-place AdamW step (``ops/fused_adamw.py``, ``AdamW.step_``) on the
-CPU, and the SSL trainer that takes it.
+CPU, the route ``ops/step.py`` takes to it, and the trainers that step
+through it.
 
 On the CPU ``step_`` runs the per-leaf loop and copies into the leaves, so
 it is held bitwise against ``AdamW.update`` + ``apply_updates`` over 3
@@ -9,13 +10,22 @@ widths). The kernel's work table (``segments``) is checked at the SSL
 model's full leaf sizes, read on the meta device. The kernel itself runs
 only on a card (``tests/test_torch_kernels_gpu.py``).
 
-The trainer updates its leaves in place, so nothing it was handed may
-share their storage: after ``transform(use_best=True)``, ``resume()`` or
-``_load_model()`` a further step leaves the best stash and the loaded
-checkpoint's tensors as they were.
+``ops/step.update`` takes ``step_`` for a bare AdamW only; ``Frozen``,
+``MultiSteps``, ``mu_dtype`` and Adafactor take ``update`` and leave the
+leaves they were given alone. Both routes give the per-leaf loop's bits.
+
+Every trainer on the in-place route (the SSL trainer, the supervised
+trainer with AdamW, the multi-session VTT trainer, CEBRA and the VideoMAE
+pretraining step) updates its leaves and moments in place, so nothing it
+was handed may share their storage: a further step leaves the best stash,
+a loaded checkpoint's tensors, an earlier fit's params and what a save
+wrote (a background save reads after the next step here) as they were.
 """
 
+import copy
 import json
+import threading
+import types
 from pathlib import Path
 
 import numpy as np
@@ -25,12 +35,20 @@ import torch
 from video_spike_torch.models.vit_mae import ContrastViTMAE
 from video_spike_torch.ops import fused_adamw
 from video_spike_torch.ops.optim import (
+    Adafactor,
     AdamW,
+    Frozen,
+    MultiSteps,
     apply_updates,
     cosine_onecycle_schedule,
 )
+from video_spike_torch.ops.step import steps_in_place, update
 from video_spike_torch.train import contrast
 from video_spike_torch.train.contrast import ContrastTrainer
+
+# the data sessions of the supervised and the multi-session trainers
+from test_torch_multisession import two_sessions  # noqa: F401
+from test_torch_optim_variants import session  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -105,6 +123,57 @@ def test_step_in_place_equals_update_then_apply(case):
                                _bits(ref_state["mu"][k])), (step, k)
             assert torch.equal(_bits(state["nu"][k]),
                                _bits(ref_state["nu"][k])), (step, k)
+
+
+# (optimizer, update's in_place argument, whether it steps in place)
+ROUTES = {
+    "adamw": (lambda: AdamW(1e-2), True, True),
+    "adamw_not_in_place": (lambda: AdamW(1e-2), False, False),
+    "frozen": (lambda: Frozen(AdamW(1e-2), ("b",)), True, False),
+    "multisteps": (lambda: MultiSteps(AdamW(1e-2), 2), True, False),
+    "mu_bf16": (lambda: AdamW(1e-2, mu_dtype=torch.bfloat16), True, False),
+    "adafactor": (lambda: Adafactor(1e-2), True, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROUTES))
+def test_update_routes_by_the_optimizer(monkeypatch, name):
+    """``ops/step.update`` steps a bare AdamW in place through ``step_``
+    and every other optimizer, or a bare AdamW with ``in_place=False``,
+    through ``update`` and ``apply_updates``, leaving the leaves and the
+    state it was given as they were; either way the leaves and the state
+    are the per-leaf loop's, bit for bit."""
+    make, asked, in_place = ROUTES[name]
+    tx, ref = make(), make()
+    rng = np.random.default_rng(1)
+    params = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+              for k, s in (("a", (130, 129)), ("b", (7,)))}
+    grads = {k: torch.from_numpy(rng.normal(size=v.shape).astype(
+        np.float32)) for k, v in params.items()}
+    kept = _copies(params)
+    state = tx.init(params)
+    upd, want_state = ref.update(grads, ref.init(kept), kept)
+    want = apply_updates(kept, upd)
+    routes = []
+    real = AdamW.step_
+    monkeypatch.setattr(AdamW, "step_", lambda self, *a: (
+        routes.append("step_"), real(self, *a))[1])
+    kept_state = copy.deepcopy(state)
+    new, new_state = update(tx, params, grads, state, in_place=asked)
+    assert steps_in_place(tx) == name.startswith("adamw")
+    assert routes == (["step_"] if in_place else [])
+    assert (new is params and new_state is state) == in_place
+    if not in_place:
+        _assert_same(params, kept)
+        for what in ("mu", "nu"):
+            if what in state:
+                _assert_same(state[what], kept_state[what])
+    _assert_same(new, want)
+    for what in ("mu", "nu", "v_row", "v_col", "v"):
+        inner = new_state.get("inner", new_state)
+        if what in inner:
+            want_inner = want_state.get("inner", want_state)
+            _assert_same(inner[what], want_inner[what])
 
 
 def test_step_keeps_the_state_and_its_tensors():
@@ -200,51 +269,234 @@ def _assert_same(got: dict, want: dict) -> None:
         assert torch.equal(got[k], want[k]), k
 
 
-def test_train_step_updates_the_leaves_in_place(tmp_path):
-    tr = _trainer(tmp_path)
-    tr._init_if_needed()
-    ptrs = {k: v.data_ptr() for k, v in tr.params.items()}
-    mu = tr.opt_state["mu"]
-    before = _copies(tr.params)
-    tr._train_step(_triplet(1))
-    assert {k: v.data_ptr() for k, v in tr.params.items()} == ptrs
-    assert tr.opt_state["mu"] is mu and tr.opt_state["count"] == 1
-    assert any(not torch.equal(v, before[k]) for k, v in tr.params.items())
+def _clips(k: int) -> torch.Tensor:
+    """Step ``k``'s batch of the VideoMAE step: 2 clips of 4 uint8 frames."""
+    rng = np.random.default_rng(k)
+    return torch.from_numpy(rng.integers(0, 256, (2, 4, 1, 24, 24),
+                                         dtype=np.uint8))
 
 
-@pytest.mark.parametrize("site", ["transform_best", "load_model", "resume"])
-def test_a_step_writes_nothing_it_was_handed(tmp_path, monkeypatch, site):
-    """The best stash (``transform(use_best=True)``) and a loaded
-    checkpoint's tensors (``_load_model``, ``resume``) are copied into the
-    live leaves: a further step leaves them as they were."""
-    tr = _trainer(tmp_path)
-    tr._init_if_needed()
-    tr._train_step(_triplet(1))
+def _linear(d, tmp_path):
+    from test_torch_spans import _linear_trainer
+
+    tr = _linear_trainer(d, tmp_path, {"name": "adamw"})
+    assert steps_in_place(tr.tx)
+    return tr
+
+
+def _vtt(d, tmp_path):
+    from test_torch_multisession import EIDS, MODEL, _trainer_config
+    from video_spike_torch.core.config import DictConfig
+    from video_spike_torch.models.vtt import VideoTemporalTransformer
+    from video_spike_torch.train.multisession import MultiSessionTrainer
+
+    tr = MultiSessionTrainer(model=None, config=DictConfig(
+        _trainer_config(num_epochs=1)), eids=EIDS, data_dir=str(d / "data"),
+        log_dir=str(tmp_path), device="cpu")
+    tr.model = VideoTemporalTransformer.from_config(
+        dict(MODEL, n_sessions=2, max_neurons=tr.max_neurons),
+        dtype=torch.float32)
+    assert steps_in_place(tr.tx)
+    return tr
+
+
+class _Run:
+    """One trainer with a bare AdamW, as its own loop drives it:
+    ``params()`` its live leaves, ``state()`` its optimizer state,
+    ``step(k)`` its step on the inputs of ``k``."""
+
+    def __init__(self, kind, tmp_path, data):
+        if kind == "contrast":
+            tr = _trainer(tmp_path)
+            tr._init_if_needed()
+            self.step = lambda k: tr._train_step(_triplet(k))
+        elif kind == "base":
+            tr = _linear(data, tmp_path)
+            assert tr._stage_device_dataset()
+            x, ap = tr._dev_data
+
+            def step(k):
+                rows = torch.from_numpy(
+                    np.random.default_rng(k).permutation(len(x))[:8])
+                tr._step(x[rows], ap[rows], 8)
+            self.step = step
+        elif kind == "vtt":
+            tr = _vtt(data, tmp_path)
+            assert tr._stage_device_dataset()
+            self.step = lambda k: tr.staged_step(
+                np.random.default_rng(k).permutation(tr._n_train)[:4], 4)
+        elif kind == "cebra":
+            from video_spike_torch.models.cebra import CEBRA
+
+            tr = CEBRA(batch_size=16, max_iterations=3, device="cpu")
+            gen = torch.Generator().manual_seed(0)
+            series = torch.from_numpy(SERIES)
+            tr.params = tr.init_params(series.shape[1], gen)
+            tr.opt_state = tr.tx.init(tr.params)
+
+            def step(k):
+                tr.params, tr.opt_state, _ = tr.step(
+                    tr.params, tr.opt_state, series,
+                    *tr.sample(gen, len(series) - 21))
+            self.step = step
+        else:
+            from video_spike_torch.cli import pretrain_videomae as cli
+
+            model, tx, params, opt_state = cli.build(
+                VMAE, {"lr": 1e-3, "wd": 0.01}, 0, torch.device("cpu"))
+            tr = types.SimpleNamespace(tx=tx, params=params,
+                                       opt_state=opt_state)
+            step_fn = cli.make_step(model, tx, 4, 32, 0.75)
+            gen = torch.Generator()
+
+            def step(k):
+                tr.params, tr.opt_state, _ = cli.train_step(
+                    step_fn, tr.params, tr.opt_state, _clips(k), gen, 0, k)
+            self.step = step
+        self.trainer = tr
+        assert steps_in_place(tr.tx)
+
+    def params(self) -> dict:
+        return self.trainer.params
+
+    def state(self) -> dict:
+        return self.trainer.opt_state
+
+
+# the in-place route's trainers: the SSL trainer, the supervised trainer
+# with AdamW, the multi-session VTT trainer and CEBRA (the VideoMAE step
+# is a function of what it is handed, and steps into new tensors)
+KINDS = ["contrast", "base", "vtt", "cebra"]
+SERIES = np.random.default_rng(9).normal(size=(200, 6)).astype(np.float32)
+VMAE = dict(image_size=32, patch_size=8, num_channels=3, num_frames=4,
+            tubelet_size=2, hidden_size=32, num_hidden_layers=2,
+            num_attention_heads=4, intermediate_size=64, mask_type="tube",
+            norm_pix_loss=True)
+
+
+@pytest.fixture
+def data(request):
+    """The data sessions the supervised and multi-session trainers read
+    (built once a module), else None."""
+    name = {"base": "session", "vtt": "two_sessions"}.get(
+        request.node.callspec.params["kind"])
+    return request.getfixturevalue(name) if name else None
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_train_step_updates_the_leaves_in_place(tmp_path, data, kind):
+    run = _Run(kind, tmp_path, data)
+    ptrs = {k: v.data_ptr() for k, v in run.params().items()}
+    mu = run.state()["mu"]
+    before = _copies(run.params())
+    run.step(1)
+    assert {k: v.data_ptr() for k, v in run.params().items()} == ptrs
+    assert run.state()["mu"] is mu and run.state()["count"] == 1
+    assert any(not torch.equal(v, before[k])
+               for k, v in run.params().items())
+
+
+def _handed_by_load(monkeypatch, module, handed: dict) -> None:
+    """``module.load_checkpoint`` keeps the tensors of the params and the
+    optimizer state it hands out in ``handed``."""
+    real = module.load_checkpoint
+
+    def keep(*a, **kw):
+        tree = real(*a, **kw)
+        handed.update(tree["params"])
+        state = tree.get("opt_state", {})
+        state = state.get("tx", state)
+        for what in ("mu", "nu"):
+            handed.update({f"{what}:{k}": v
+                           for k, v in state.get(what, {}).items()})
+        return tree
+
+    monkeypatch.setattr(module, "load_checkpoint", keep)
+
+
+SITES = [("contrast", "transform_best"), ("contrast", "load_model"),
+         ("contrast", "resume"), ("base", "best"), ("base", "resume"),
+         ("base", "save_last"), ("vtt", "best"), ("vtt", "resume"),
+         ("vtt", "save_last"), ("cebra", "refit"), ("videomae", "backbone"),
+         ("videomae", "step")]
+
+
+@pytest.mark.parametrize("kind,site", SITES)
+def test_a_step_writes_nothing_it_was_handed(tmp_path, monkeypatch, data,
+                                             kind, site):
+    """What a trainer was handed is copied into its live leaves, never
+    aliased, and what it saves is a copy: a further step (or fit) leaves
+    the best stash (after the train loop, or ``transform(use_best=True)``),
+    a loaded checkpoint's params and moments (``resume``, ``_load_model``),
+    an earlier fit's params, what an asynchronous ``model_last`` save or
+    the backbone save wrote, and the VideoMAE step's own arguments, as they
+    were."""
+    from video_spike_torch.train import base, checkpoint, multisession
+
+    run = _Run(kind, tmp_path, data)
+    tr = run.trainer
     handed = {}
+    if site in ("save_last", "backbone"):
+        # a background save reads its tensors only after the next step
+        stepped = threading.Event()
+        fetch = checkpoint.parallel_device_get
+        monkeypatch.setattr(checkpoint, "parallel_device_get",
+                            lambda *a: stepped.wait(60) and fetch(*a))
+        run.step(1)
+        kept = _copies(tr.params)
+        if site == "backbone":      # as the pretraining CLI's main writes
+            checkpoint.save_checkpoint(tmp_path, "backbone",
+                                       {"params": tr.params})
+        elif kind == "base":
+            tr.save_model("last", 0, block=False)
+        else:
+            tr._save_last(0, block=False)
+        run.step(2)
+        stepped.set()
+        checkpoint.wait_for_checkpoints()
+        saved = checkpoint.load_checkpoint(
+            tmp_path if site == "backbone" else tr.log_dir,
+            "backbone" if site == "backbone" else "model_last")
+        _assert_same(saved["params"], kept)
+        return
     if site == "transform_best":
-        tr._best_params = {k: v.clone() for k, v in tr.params.items()}
-        tr._train_step(_triplet(2))
+        run.step(1)
+        tr._best_params = _copies(tr.params)
+        run.step(2)
         tr.transform(_Frames(_triplet(3)[0].numpy()), use_best=True)
         handed = tr._best_params
-    else:
-        tr._save_last(1)
-        tr._save_model("best_model")
-        real = contrast.load_checkpoint
-
-        def keep(*a, **kw):
-            tree = real(*a, **kw)
-            handed.update(tree["params"])
-            return tree
-
-        monkeypatch.setattr(contrast, "load_checkpoint", keep)
-        tr = _trainer(tmp_path, seed=5)
-        if site == "resume":
-            assert tr.resume()
+    elif site == "best":
+        tr.train()              # one epoch: the best params end up live
+        handed = tr._best_params
+    elif site == "refit":
+        tr.fit(SERIES)
+        handed = tr.params
+    elif site == "step":        # the params and moments the step is handed
+        run.step(1)
+        handed = {**tr.params, **{f"{what}:{k}": v for what in ("mu", "nu")
+                                  for k, v in tr.opt_state[what].items()}}
+    else:                       # resume, load_model: a new trainer loads
+        run.step(1)
+        if site == "load_model":
+            tr._save_model("best_model")
+        elif kind == "base":
+            tr.save_model("last", 0)
         else:
-            assert tr._load_model("best_model")
+            tr._save_last(1)
+        module = {"contrast": contrast, "base": base,
+                  "vtt": multisession}[kind]
+        _handed_by_load(monkeypatch, module, handed)
+        run = _Run(kind, tmp_path, data)
+        assert (run.trainer._load_model("best_model")
+                if site == "load_model" else run.trainer.resume())
     assert handed
     kept = _copies(handed)
-    _assert_same(tr.params, kept)
-    tr._train_step(_triplet(4))
+    if site == "refit":
+        run.trainer.fit(SERIES[::-1].copy())
+    else:
+        _assert_same(run.params(),
+                     {k: v for k, v in kept.items() if ":" not in k})
+        run.step(4)
     _assert_same(handed, kept)
-    assert any(not torch.equal(v, kept[k]) for k, v in tr.params.items())
+    assert any(not torch.equal(v, kept[k])
+               for k, v in run.params().items())

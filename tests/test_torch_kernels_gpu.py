@@ -42,9 +42,12 @@ the per-leaf loop on the card (``AdamW.update`` + ``apply_updates``, the
 same f32 operations in the same order) over 3 steps: at the SSL model's 255
 leaf shapes (ContrastViTMAE over ViT-MAE-Base, 111,002,116 elements, with
 its 1- and 3-element leaves), and at odd sizes in views that start 4 and 8
-bytes off a 16-byte boundary.
+bytes off a 16-byte boundary; and over 3 steps of the VideoMAE pretraining
+step, the multi-session VTT trainer and CEBRA (strided gradients), which
+take it through ``ops/step.py``, on the gradients each step hands it.
 """
 
+import copy
 import os
 import subprocess
 import sys
@@ -489,6 +492,135 @@ def test_fused_adamw_cuda_leaves_never_take_the_plain_version(cuda_device,
     case()
     torch.cuda.synchronize()
     assert fused_adamw.step_.launches == before + 1
+
+
+def _videomae_steps(device):
+    """``cli/pretrain_videomae.py``'s ``build`` and step at head dim 32 (the
+    decoder's 64) on 2 clips of 4 frames: ``(tx, state(), step(k))``,
+    ``state()`` the params and optimizer state the last step returned."""
+    from video_spike_torch.cli import pretrain_videomae as cli
+
+    cfg = dict(image_size=64, patch_size=16, num_channels=3, num_frames=4,
+               tubelet_size=2, hidden_size=64, num_hidden_layers=2,
+               num_attention_heads=2, intermediate_size=128,
+               mask_type="tube", norm_pix_loss=True)
+    model, tx, params, state = cli.build(cfg, {"lr": 1e-3, "wd": 0.01}, 0,
+                                         device)
+    step_fn = cli.make_step(model, tx, 4, 64, 0.75)
+    gen = torch.Generator(device=device)
+    rng = np.random.default_rng(5)
+    video = torch.from_numpy(rng.integers(0, 256, (2, 4, 1, 48, 48),
+                                          dtype=np.uint8)).to(device)
+
+    cur = [params, state]
+
+    def step(k):
+        cur[:2] = cli.train_step(step_fn, *cur, video, gen, 0, k)[:2]
+
+    return tx, lambda: tuple(cur), step
+
+
+def _vtt_steps(device, tmp_path):
+    """The multi-session trainer's staged step on two synthetic sessions,
+    the VTT at head dim 32: ``(tx, state(), step(k))``, ``state()`` its
+    live params and optimizer state."""
+    from video_spike_torch.core.config import DictConfig
+    from video_spike_torch.data.synthetic import make_synthetic_session
+    from video_spike_torch.models.vtt import VideoTemporalTransformer
+    from video_spike_torch.train.multisession import MultiSessionTrainer
+
+    eids = ["sessa0000", "sessb0000"]
+    for i, eid in enumerate(eids):
+        make_synthetic_session(tmp_path / "data", eid=eid, n_trials=12,
+                               n_neurons=6 + 3 * i, seed=20 + i, height=32,
+                               width=32)
+    tr = MultiSessionTrainer(model=None, config=DictConfig({
+        "training": {"num_epochs": 1, "train_batch_size": 4,
+                     "test_batch_size": 4},
+        "optimizer": {"lr": 1e-3, "wd": 0.01, "eps": 1e-8,
+                      "warmup_pct": 0.15, "div_factor": 10}}),
+        eids=eids, data_dir=str(tmp_path / "data"),
+        log_dir=str(tmp_path / "logs"), device=device)
+    tr.model = VideoTemporalTransformer.from_config(dict(
+        t_frames=120, t_bins=100, patch_size=8, hidden_size=64,
+        frame_depth=1, temporal_depth=1, num_attention_heads=2,
+        intermediate_size=128, frame_stride=2, n_sessions=2,
+        max_neurons=tr.max_neurons))
+    assert tr._stage_device_dataset()
+
+    def step(k):
+        tr.staged_step(np.random.default_rng(k).permutation(tr._n_train)[:4],
+                       4)
+
+    return tr.tx, lambda: (tr.params, tr.opt_state), step
+
+
+def _cebra_steps(device):
+    """``CEBRA.step`` on a seeded series: ``(tx, state(), step(k))``,
+    ``state()`` its live params and optimizer state; its convolution
+    kernels' gradients are strided views."""
+    from video_spike_torch.models.cebra import CEBRA
+
+    c = CEBRA(batch_size=64, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    series = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(400, 12)).astype(np.float32)).to(device)
+    params = c.init_params(series.shape[1], gen)
+    state = c.tx.init(params)
+
+    def step(k):
+        c.step(params, state, series, *c.sample(gen, len(series) - 21))
+
+    return c.tx, lambda: (params, state), step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["videomae", "vtt", "cebra"])
+def test_trainer_steps_equal_the_per_leaf_loop(cuda_device, tmp_path,
+                                               monkeypatch, kind):
+    """3 steps of the VideoMAE pretraining step, of the multi-session VTT
+    trainer and of CEBRA leave parameters and moments bitwise where the
+    per-leaf loop (``AdamW.update`` + ``apply_updates``) takes the same
+    gradients. The VTT and CEBRA take ``ops/step.py``'s in-place route (one
+    kernel launch a step); the VideoMAE step, which leaves what it is
+    handed as it was, takes the per-leaf loop and launches none. The
+    gradients are the ones the step hands ``ops/step.update``: the
+    attention's backward adds dQ in no fixed order, so two backwards may
+    differ."""
+    from video_spike_torch.ops import step as ops_step
+
+    handed = []
+    real = ops_step.update
+
+    def keep(tx, params, grads, *a, **kw):
+        handed.append({k: g.clone() for k, g in grads.items()})
+        return real(tx, params, grads, *a, **kw)
+
+    monkeypatch.setattr(ops_step, "update", keep)
+    launches = 0 if kind == "videomae" else 1
+    tx, live, step = {
+        "videomae": lambda: _videomae_steps(cuda_device),
+        "vtt": lambda: _vtt_steps(cuda_device, tmp_path),
+        "cebra": lambda: _cebra_steps(cuda_device)}[kind]()
+    ref_tx = copy.copy(tx)
+    ref_p = {k: v.clone() for k, v in live()[0].items()}
+    ref_state = ref_tx.init(ref_p)
+    for k in range(3):
+        before = fused_adamw.step_.launches
+        step(k)
+        torch.cuda.synchronize()
+        assert fused_adamw.step_.launches == before + launches
+        params, state = live()
+        upd, ref_state = ref_tx.update(handed[-1], ref_state, ref_p)
+        ref_p = apply_updates(ref_p, upd)
+        assert state["count"] == ref_state["count"] == k + 1
+        for name in ref_p:
+            for what, got, want in (
+                    ("p", params[name], ref_p[name]),
+                    ("mu", state["mu"][name], ref_state["mu"][name]),
+                    ("nu", state["nu"][name], ref_state["nu"][name])):
+                assert torch.equal(_bits32(got), _bits32(want)), (
+                    k, name, what)
 
 
 # ---------------------------------------------------------------------------

@@ -7,13 +7,14 @@ profiler's clock.
 - Under ``torch.profiler``, three steps of a tiny ``ContrastTrainer``
   (``tests/test_torch_contrast.py``'s, over an in-memory session, frame
   cache live) driven as ``fit()`` drives them, a staged epoch of the
-  Linear ``BaseTrainer`` (standard step and fused step), and three steps
-  of ``cli/pretrain_videomae.py``'s loop (``clip_stream``,
-  ``train_step``) over a tiny ``VideoMAEForPreTraining`` with tube
-  masking, record one ``vs.step`` a step whose direct children, found by
-  their intervals, are ``vs.forward``, ``vs.backward`` and
-  ``vs.optimizer`` in that order. The SSL and pretraining loops record one
-  ``vs.producer_wait`` a batch, before its step.
+  Linear ``BaseTrainer`` (standard step and fused step), three steps of
+  ``cli/pretrain_videomae.py``'s loop (``clip_stream``, ``train_step``)
+  over a tiny ``VideoMAEForPreTraining`` with tube masking, and a staged
+  epoch of the tiny VTT ``MultiSessionTrainer`` over two sessions, record
+  one ``vs.step`` a step whose direct children, found by their intervals,
+  are ``vs.forward``, ``vs.backward`` and ``vs.optimizer`` in that order.
+  The SSL and pretraining loops record one ``vs.producer_wait`` a batch,
+  before its step.
 - In the two ViT models each attention core is a ``vs.attention`` span
   directly under ``vs.forward``, once a block, and its backward one more
   (on the CPU autograd runs it on the calling thread, inside
@@ -39,8 +40,10 @@ import torch
 
 from video_spike_torch.core import spans
 
-# the tiny SSL trainer of the trainer tests; the Linear fixture session
+# the tiny SSL trainer of the trainer tests; the Linear fixture session;
+# the two sessions of the multi-session trainer tests
 from test_torch_contrast import _port_trainer
+from test_torch_multisession import two_sessions  # noqa: F401
 from test_torch_optim_variants import REPO, session  # noqa: F401
 
 torch.set_num_threads(1)
@@ -62,7 +65,8 @@ VMAE = dict(image_size=32, patch_size=8, num_channels=3, num_frames=4,
 VMAE_DECODER = dict(decoder_hidden_size=32, decoder_num_hidden_layers=1,
                     decoder_num_attention_heads=4,
                     decoder_intermediate_size=64)
-KINDS = ["ssl", *LINEAR_OPTIMIZERS, "videomae_pretrain"]
+VTT_STEPS = 5        # the two sessions' staged training trials at batch 4
+KINDS = ["ssl", *LINEAR_OPTIMIZERS, "videomae_pretrain", "vtt"]
 VIT_KINDS = ["ssl", "videomae_pretrain"]
 MAIN = threading.get_ident()
 
@@ -194,7 +198,23 @@ class _Pretraining:
         return losses
 
 
-def _run(kind, d, log_dir, traced: bool) -> dict:
+def _vtt_trainer(d, log_dir):
+    from test_torch_multisession import EIDS, MODEL, _trainer_config
+    from video_spike_torch.core.config import DictConfig
+    from video_spike_torch.models.vtt import VideoTemporalTransformer
+    from video_spike_torch.train.multisession import MultiSessionTrainer
+
+    trainer = MultiSessionTrainer(
+        model=None, config=DictConfig(_trainer_config(num_epochs=1)),
+        eids=EIDS, data_dir=str(d / "data"), log_dir=str(log_dir),
+        device="cpu")
+    trainer.model = VideoTemporalTransformer.from_config(
+        dict(MODEL, n_sessions=2, max_neurons=trainer.max_neurons),
+        dtype=torch.float32)
+    return trainer
+
+
+def _run(kind, dirs, log_dir, traced: bool) -> dict:
     """One run of ``kind``, under a profiler or not: its losses, final
     parameters, recorded spans and the profiler's ``vs.*`` ranges."""
     if kind == "ssl":
@@ -207,8 +227,15 @@ def _run(kind, d, log_dir, traced: bool) -> dict:
     elif kind == "videomae_pretrain":
         trainer = _Pretraining()
         work = trainer.work
+    elif kind == "vtt":
+        trainer = _vtt_trainer(dirs["vtt"], log_dir)
+
+        def work():
+            assert trainer._stage_device_dataset()   # staging is set-up
+            return [trainer.train_epoch()["train_loss"]]
     else:
-        trainer = _linear_trainer(d, log_dir, LINEAR_OPTIMIZERS[kind])
+        trainer = _linear_trainer(dirs["linear"], log_dir,
+                                  LINEAR_OPTIMIZERS[kind])
 
         def work():
             trainer._stage_device_dataset()   # staging is set-up
@@ -232,8 +259,9 @@ def _run(kind, d, log_dir, traced: bool) -> dict:
 
 
 @pytest.fixture(scope="module")
-def runs(session, tmp_path_factory):  # noqa: F811
-    return {(kind, traced): _run(kind, session,
+def runs(session, two_sessions, tmp_path_factory):  # noqa: F811
+    dirs = {"linear": session, "vtt": two_sessions}
+    return {(kind, traced): _run(kind, dirs,
                                  tmp_path_factory.mktemp(kind), traced)
             for kind in KINDS for traced in (False, True)}
 
@@ -328,8 +356,8 @@ def test_each_thread_keeps_its_own_spans():
 def test_each_step_holds_forward_backward_optimizer(runs, kind):
     got = runs[kind, True]["spans"]
     steps = [s for s in got if s.name == "step"]
-    assert len(steps) == {"ssl": SSL_STEPS,
-                          "videomae_pretrain": VMAE_STEPS}.get(kind, 2)
+    assert len(steps) == {"ssl": SSL_STEPS, "videomae_pretrain": VMAE_STEPS,
+                          "vtt": VTT_STEPS}.get(kind, 2)
     for st in steps:
         assert st.thread == MAIN
         # the step is outermost, its children do not nest

@@ -24,8 +24,7 @@ semantics) at the yaml's constant ``lr`` and ``wd``; each step's masking
 noise comes from a generator seeded from (seed, step) (``mask_seed``).
 ``main``'s loop is ``clip_stream``, ``make_step`` and ``train_step``, the
 functions a benchmark drives too; while a profiler records, each step is
-a ``vs.step`` span holding ``vs.forward``, ``vs.backward`` and
-``vs.optimizer``.
+a ``vs.step`` span holding ``ops/step.py``'s.
 ``backbone.pt`` (``{"params": {name: tensor}}``) goes to
 ``<log_dir>/<eid[:5]>/VideoMAEPretrain/``. ``main`` returns a dict: its
 ``path``, ``n_params`` and the per-step ``losses``.
@@ -52,7 +51,8 @@ from video_spike_torch.models.videomae import (
     VideoMAEForPreTraining,
     preprocess_frames,
 )
-from video_spike_torch.ops.optim import AdamW, apply_updates
+from video_spike_torch.ops import step as ops_step
+from video_spike_torch.ops.optim import AdamW
 from video_spike_torch.train.checkpoint import save_checkpoint
 
 _MASK63 = (1 << 63) - 1
@@ -110,31 +110,21 @@ def build(model_config: dict, optimizer_config, seed: int, device):
 def make_step(model, tx, num_frames: int, image_size: int,
               mask_ratio: float):
     """``step(params, opt_state, video, generator) -> (params, opt_state,
-    loss)``: preprocess, masked reconstruction loss, one optimizer step."""
+    loss)``: preprocess, masked reconstruction loss, one AdamW step into
+    new tensors (what it was handed stays as it was)."""
 
     def step(params, opt_state, video, generator):
-        with span("forward"):
-            leaves = {k: v.detach().requires_grad_(True)
-                      for k, v in params.items()}
+        def loss_fn(leaves):
             x = preprocess_frames(video, num_frames, image_size,
                                   source_frames=video.shape[1])
             out = torch.func.functional_call(
                 model, leaves, (x,),
                 {"mask_ratio": mask_ratio, "generator": generator})
-            loss = out["recon_loss"]
-        with span("backward"):
-            names = list(leaves)
-            grads = torch.autograd.grad(loss, [leaves[k] for k in names],
-                                        allow_unused=True)
-            with torch.no_grad():
-                # a leaf the loss does not reach (mask_token at ratio 0)
-                # has a zero gradient under jax.grad
-                grads = {k: torch.zeros_like(params[k]) if g is None else g
-                         for k, g in zip(names, grads)}
-        with span("optimizer"), torch.no_grad():
-            updates, opt_state = tx.update(grads, opt_state, params)
-            params = apply_updates(params, updates)
-        return params, opt_state, loss.detach()
+            return out["recon_loss"], None
+
+        params, opt_state, loss, _ = ops_step.train_step(
+            loss_fn, params, opt_state, tx, in_place=False)
+        return params, opt_state, loss
 
     return step
 

@@ -12,7 +12,7 @@ iterations, batch 512):
   conv is one matmul of the input with the ``(in, k·out)`` view of its
   kernel, the k shifted output slices summed: no cuDNN convolution, so no
   TF32 rounding under PyTorch's default backend flags;
-- :class:`CEBRA`: InfoNCE with temporal positives, trained by Adam
+- :class:`CEBRA`: InfoNCE with temporal positives, trained in place by Adam
   (``ops/optim.AdamW`` with no weight decay, ``optax.adam``'s numerics).
   The anchors, offsets and negatives are drawn on the device from a
   ``torch.Generator``; ``step`` takes them as arguments. The fit loop never
@@ -40,7 +40,8 @@ from torch import nn
 from video_spike_torch.core.device import resolve_device
 from video_spike_torch.models.linear import lecun_normal_
 from video_spike_torch.ops.contrastive import info_nce
-from video_spike_torch.ops.optim import AdamW, apply_updates
+from video_spike_torch.ops.optim import AdamW
+from video_spike_torch.ops.step import train_step
 
 RECEPTIVE_FIELD = 10
 LOSS_EVERY = 100     # losses_ keeps the loss of every 100th iteration
@@ -146,17 +147,12 @@ class CEBRA:
     def step(self, params: Mapping[str, torch.Tensor], opt_state: dict,
              X: torch.Tensor, anchor: torch.Tensor, delta: torch.Tensor,
              negi: torch.Tensor):
-        """One Adam step at the given indices: (params, opt_state, loss)."""
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in params.items()}
-        loss = self.loss(leaves, X, anchor, delta, negi)
-        names = list(leaves)
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [leaves[k] for k in names])))
-        with torch.no_grad():
-            updates, opt_state = self.tx.update(grads, opt_state, params)
-            params = apply_updates(params, updates)
-        return params, opt_state, loss.detach()
+        """One Adam step at the given indices, in place: (params,
+        opt_state, loss)."""
+        params, opt_state, loss, _ = train_step(
+            lambda leaves: (self.loss(leaves, X, anchor, delta, negi), None),
+            params, opt_state, self.tx)
+        return params, opt_state, loss
 
     def sample(self, generator: torch.Generator, max_start: int):
         """(anchor, delta, negi) for one step, drawn on the device with the

@@ -23,7 +23,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from video_spike_torch.ops.fused_readout import dense, preprocess_flat
+from video_spike_torch.ops.dense import dense, preprocess_flat
 from video_spike_torch.parallel.tensor import column_dense, row_dense
 
 # flax's variance_scaling "truncated_normal": stddev / this constant is the

@@ -53,7 +53,7 @@ from video_spike_torch.models.vit_mae import (
     random_masking,
     sincos_pos_embed_1d,
 )
-from video_spike_torch.ops.fused_readout import dense
+from video_spike_torch.ops.dense import dense
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)

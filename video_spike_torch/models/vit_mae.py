@@ -25,7 +25,7 @@ wrappers of ``vit_mae.py:7-94``):
 Precision follows flax's per-module dtypes, cast explicitly (no autocast):
 
 - ``Dense(dtype=bf16)`` casts the f32 kernel and bias to bf16 on every call
-  and returns bf16 (``ops/fused_readout.dense``); kernels keep flax's
+  and returns bf16 (``ops/dense.dense``); kernels keep flax's
   (in, out) layout and ``lecun_normal`` init;
 - ``LayerNorm`` takes its statistics in f32 with flax's fast variance
   (E[x²] − E[x]², clipped at 0), normalises in f32 with the f32 scale and
@@ -59,7 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from video_spike_torch.core.spans import backward_span, span
 from video_spike_torch.models.linear import Dense, layer_dense, lecun_normal_
 from video_spike_torch.ops.attention import attention_bshd
-from video_spike_torch.ops.fused_readout import dense
+from video_spike_torch.ops.dense import dense
 
 
 # ---------------------------------------------------------------------------

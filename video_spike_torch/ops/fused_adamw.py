@@ -174,12 +174,15 @@ def _launch(tx, params: Mapping[str, torch.Tensor],
                         params[keys[0]].get_device())
         tx._fused_tables = tables
     index = tables.device
-    gptrs = []
+    # a strided gradient (CEBRA's kernels') is read from a contiguous copy
+    gptrs, copies = [], []
     for k, shape in zip(keys, tables.shapes):
         g = grads[k]
+        if not g.is_contiguous():
+            g = g.contiguous()
+            copies.append(g)
         if (g.dtype != torch.float32 or not g.is_cuda
-                or g.get_device() != index or not g.is_contiguous()
-                or g.shape != shape):
+                or g.get_device() != index or g.shape != shape):
             raise ValueError("fused AdamW: " + "; ".join(
                 _leaf_problems(k, g, "gradient", shape, index)))
         gptrs.append(g.data_ptr())

@@ -45,7 +45,9 @@ import numpy as np
 import torch
 
 from video_spike_torch.core.spans import span
+from video_spike_torch.ops.dense import dense, preprocess_flat
 from video_spike_torch.ops.optim import MASK32, mix_bits, seed_key
+from video_spike_torch.ops.step import update
 from video_spike_torch.parallel.multihost import (
     gather_rows,
     sum_grads_and_loss,
@@ -394,22 +396,6 @@ FIRST_KERNEL = "encoder.Dense_0.kernel"
 FIRST_BIAS = "encoder.Dense_0.bias"
 
 
-def preprocess_flat(model, x: torch.Tensor) -> torch.Tensor:
-    """The LinearModel input path before the first Dense: uint8 -> [0, 1]
-    in the compute dtype, flatten."""
-    b = x.shape[0]
-    if x.dtype == torch.uint8:
-        x = x.to(model.compute_dtype) / 255.0
-    return x.reshape(b, -1).to(model.compute_dtype)
-
-
-def dense(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-          dtype: torch.dtype) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=...)``: both operands cast to the compute dtype,
-    ``h @ kernel + bias`` with the (in, out) kernel."""
-    return h.to(dtype) @ kernel.to(dtype) + bias.to(dtype)
-
-
 def tail_apply(model, params: Mapping[str, torch.Tensor],
                z1: torch.Tensor) -> torch.Tensor:
     """Everything after ``z1 = flat @ W1 + b1`` (the pre-ReLU first-Dense
@@ -445,36 +431,31 @@ def merge_first_kernel(rest: Mapping[str, torch.Tensor],
     return {**rest, FIRST_KERNEL: kernel}
 
 
-def make_fused_linear_step(model, tx_rest, schedule, criterion,
-                           apply_updates_rest, group=None):
-    """Build ``step(params, opt_state, inputs, ap, n_valid, seed)`` with the
-    first-Dense update fused (rank-B factors, no materialized gradient) and
-    every other leaf on ``tx_rest``. ``opt_state`` is
-    ``(FusedReadoutState, tx_rest state)``; see :func:`init_fused_opt_state`.
-
-    The first kernel is updated in place; the returned params dict holds the
-    same kernel tensor and new tensors for the rest. dz comes from autograd
-    on ``z_nob`` through the tail, as ``jax.value_and_grad(argnums=(0, 1))``
-    gives it in the JAX package. With a data ``group``, ``inputs`` and
-    ``ap`` are this rank's rows and ``n_valid`` the global valid-row count.
-    The phases are ``core/spans``' ``forward``, ``backward``,
-    ``grad_allreduce`` (with a group) and ``optimizer``, which holds the
-    kernel's call.
-    """
+def _make_fused_step(kernel_name: str, bias_name: str, flatten, tail,
+                     trains, tx_rest, schedule, criterion,
+                     apply_updates_rest, group):
+    """``step(params, opt_state, inputs, ap, n_valid, seed)``: the kernel
+    ``kernel_name`` takes the rank-B update in place (its call in the
+    ``optimizer`` span), the rest's leaves that ``trains`` accepts
+    ``tx_rest``. ``flatten(inputs)`` gives the (B, M) rows the kernel
+    reads, ``tail(leaves, z1)`` the outputs from ``z1 = flat @ W + b``; dz
+    comes from autograd on ``z_nob``, as ``jax.value_and_grad(argnums=(0,
+    1))`` gives it. With a data ``group``, ``inputs`` and ``ap`` are this
+    rank's rows and ``n_valid`` the global count."""
 
     def step(params, opt_state, inputs, ap, n_valid, seed):
         fstate, rest_state = opt_state
-        kernel, rest = split_first_kernel(params)
+        kernel = params[kernel_name]
+        rest = {k: v for k, v in params.items() if k != kernel_name}
         with span("forward"):
             with torch.no_grad():
-                flat = preprocess_flat(model, inputs)
-                z_nob = flat @ kernel.to(model.compute_dtype)   # (B, N)
+                flat = flatten(inputs)
+                z_nob = flat @ kernel.to(flat.dtype)            # (B, N)
             z_nob.requires_grad_(True)
             leaves = {k: v.detach().requires_grad_(True)
-                      for k, v in rest.items()}
-            b1 = leaves[FIRST_BIAS]
-            out = tail_apply(model, leaves, z_nob + b1.to(z_nob.dtype))
-            loss = criterion(out, ap, n_valid)
+                      for k, v in rest.items() if trains(k)}
+            z1 = z_nob + leaves[bias_name].to(z_nob.dtype)
+            loss = criterion(tail(leaves, z1), ap, n_valid)
         names = list(leaves)
         with span("backward"):
             grads = torch.autograd.grad(
@@ -487,13 +468,25 @@ def make_fused_linear_step(model, tx_rest, schedule, criterion,
                     g_rest, loss = sum_grads_and_loss(g_rest, loss, group)
                     flat, dz = gather_rows(flat, group), gather_rows(dz, group)
             with span("optimizer"):
-                upd, rest_state = tx_rest.update(g_rest, rest_state, rest)
-                rest = apply_updates_rest(rest, upd, seed)
+                rest, rest_state = update(tx_rest, rest, g_rest, rest_state,
+                                          apply_updates_rest, seed)
                 kernel, fstate = fused_readout_update(
                     kernel, flat, dz, fstate, schedule, seed=seed)
-        return (merge_first_kernel(rest, kernel), (fstate, rest_state), loss)
+        return {**rest, kernel_name: kernel}, (fstate, rest_state), loss
 
     return step
+
+
+def make_fused_linear_step(model, tx_rest, schedule, criterion,
+                           apply_updates_rest, group=None):
+    """The Linear model's step with the first-Dense update fused (rank-B
+    factors, no materialized gradient) and every other leaf on ``tx_rest``;
+    ``opt_state`` is ``(FusedReadoutState, tx_rest state)``
+    (:func:`init_fused_opt_state`). See :func:`_make_fused_step`."""
+    return _make_fused_step(
+        FIRST_KERNEL, FIRST_BIAS, lambda x: preprocess_flat(model, x),
+        lambda leaves, z1: tail_apply(model, leaves, z1), lambda k: True,
+        tx_rest, schedule, criterion, apply_updates_rest, group)
 
 
 def init_fused_opt_state(params: Mapping[str, torch.Tensor], tx_rest,
@@ -522,52 +515,22 @@ def split_head_kernel(params: Mapping[str, torch.Tensor]):
     return params[HEAD_KERNEL], rest
 
 
-def merge_head_kernel(rest: Mapping[str, torch.Tensor],
-                      kernel: torch.Tensor) -> dict:
-    return {**rest, HEAD_KERNEL: kernel}
-
-
 def make_fused_probe_head_step(model, tx_rest, schedule, criterion,
                                apply_updates_rest, group=None):
-    """Fused head-only train step over cached frozen features:
-    ``step(params, opt_state, hidden, ap, n_valid, seed)`` with ``hidden``
-    the (B, L, D) backbone output and ``opt_state = (FusedReadoutState,
-    tx_rest state)``.
-
-    As ``VideoMAEProbe.head``, in f32 (the bf16 kernel is promoted); the
-    encoder_head kernel takes the rank-B update in place, and dz comes from
-    autograd on ``z_nob``. Only the head's other leaves (its bias and the
-    decoder head) are differentiated and passed to ``tx_rest``: the rest of
-    the parameters is the frozen backbone, which the step returns as it is.
-    A data ``group`` gathers and reduces as :func:`make_fused_linear_step`.
-    """
+    """The probe's head-only step over cached frozen features (``inputs``
+    the (B, L, D) backbone output), as ``VideoMAEProbe.head`` in f32: the
+    encoder_head kernel takes the rank-B update, its bias and the decoder
+    head ``tx_rest``; the frozen backbone comes back as it is. See
+    :func:`_make_fused_step`."""
     out_dim = model.config["decoder"]["output_dim"]
 
-    def step(params, opt_state, hidden, ap, n_valid, seed):
-        fstate, rest_state = opt_state
-        kernel, rest = split_head_kernel(params)
-        b = hidden.shape[0]
-        with torch.no_grad():
-            flat = hidden.reshape(b, -1).float()
-            z_nob = flat @ kernel.float()                   # (B, N)
-        z_nob.requires_grad_(True)
-        head = {k: v.detach().requires_grad_(True) for k, v in rest.items()
-                if k.startswith(("encoder_head.", "decoder_head."))}
-        z1 = z_nob + head[HEAD_BIAS].float()
-        out = dense(z1, head["decoder_head.kernel"], head["decoder_head.bias"],
-                    torch.float32).reshape(b, 100, out_dim // 100)
-        loss = criterion(out, ap, n_valid)
-        names = list(head)
-        grads = torch.autograd.grad(loss, [head[k] for k in names] + [z_nob])
-        with torch.no_grad():
-            g_head, loss = sum_grads_and_loss(dict(zip(names, grads[:-1])),
-                                        loss.detach(), group)
-            flat, dz = gather_rows(flat, group), gather_rows(grads[-1], group)
-            trained = {k: rest[k] for k in names}
-            upd, rest_state = tx_rest.update(g_head, rest_state, trained)
-            rest = {**rest, **apply_updates_rest(trained, upd, seed)}
-            kernel, fstate = fused_readout_update(
-                kernel, flat, dz, fstate, schedule, seed=seed)
-        return (merge_head_kernel(rest, kernel), (fstate, rest_state), loss)
+    def tail(leaves, z1):
+        return dense(z1, leaves["decoder_head.kernel"],
+                     leaves["decoder_head.bias"], torch.float32).reshape(
+                         z1.shape[0], 100, out_dim // 100)
 
-    return step
+    return _make_fused_step(
+        HEAD_KERNEL, HEAD_BIAS,
+        lambda hidden: hidden.reshape(hidden.shape[0], -1).float(), tail,
+        lambda k: k.startswith(("encoder_head.", "decoder_head.")),
+        tx_rest, schedule, criterion, apply_updates_rest, group)

@@ -9,21 +9,16 @@ take no ``DistributedDataParallel`` wrapper: their steps are functional
 (``torch.func.functional_call`` over a params dict), and the fused readout
 step has no gradient for DDP to hook.
 
-:func:`make_tensor_train_step` is the step under a (data, model) mesh
-with tensor-sharded parameters (the JAX package's ``DCN_MODE=tensor``).
+The step is ``ops/step.py``'s: a bare AdamW updates ``params`` and its
+state in place.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
-import torch
-
-from video_spike_torch.ops.optim import apply_updates
-from video_spike_torch.parallel.multihost import (
-    sum_across,
-    sum_grads_and_loss,
-)
+from video_spike_torch.ops.step import train_step
+from video_spike_torch.parallel.multihost import sum_grads_and_loss
 
 
 def make_shard_map_train_step(model_apply: Callable, criterion: Callable,
@@ -36,61 +31,16 @@ def make_shard_map_train_step(model_apply: Callable, criterion: Callable,
     optimizer state are replicated: every rank ends the step with the same
     values.
     """
-    group = mesh.group(axis)
-    n = mesh.shape[axis]
+    group, n = mesh.group(axis), mesh.shape[axis]
+
+    def mean(grads, loss, group):
+        grads, loss = sum_grads_and_loss(grads, loss, group)
+        return {k: g / n for k, g in grads.items()}, loss / n
 
     def step(params, opt_state, x, ap):
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in params.items()}
-        loss = criterion(model_apply(leaves, x), ap)
-        names = list(leaves)
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [leaves[k] for k in names])))
-        with torch.no_grad():
-            reduced = sum_across({**grads, "__loss__": loss.detach()[None]},
-                                 group)
-            loss = reduced.pop("__loss__")[0] / n
-            grads = {k: g / n for k, g in reduced.items()}
-            updates, opt_state = tx.update(grads, opt_state, params)
-            params = apply_updates(params, updates)
-        return params, opt_state, loss
-
-    return step
-
-
-def make_tensor_train_step(loss_fn: Callable, tx, mesh):
-    """``step(params, opt_state, *batch) -> (params, opt_state, loss)``
-    with tensor-sharded params: the train step of the JAX package's
-    ``dcn_trainer_smoke._tensor_sharded`` / ``__graft_entry__._dryrun_body``
-    (``jax.value_and_grad`` then ``tx.update`` under the production
-    sharding rules).
-
-    ``loss_fn(params, *batch)`` -> this rank's share of the global loss
-    (its data block's rows, divided by the global count) through a model
-    whose split layers run over the ``model`` group
-    (``parallel/tensor.split_over_model``). ``params`` holds each rank's blocks
-    of the split leaves and the whole replicated ones; ``tx`` updates them
-    as they are, so its state is split like its leaves.
-
-    Every leaf's gradient and the loss are summed over the ``data`` group
-    (a split leaf within its model column, the ranks holding the same
-    block). A replicated leaf's gradient needs no collective over
-    ``model``: the split layers all-reduce their input gradients and
-    gather their outputs, so it is the same on every rank of a model row.
-    """
-    group = mesh.group("data")
-
-    def step(params, opt_state, *batch):
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in params.items()}
-        loss = loss_fn(leaves, *batch)
-        names = list(leaves)
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [leaves[k] for k in names])))
-        with torch.no_grad():
-            grads, loss = sum_grads_and_loss(grads, loss.detach(), group)
-            updates, opt_state = tx.update(grads, opt_state, params)
-            params = apply_updates(params, updates)
+        params, opt_state, loss, _ = train_step(
+            lambda leaves: (criterion(model_apply(leaves, x), ap), None),
+            params, opt_state, tx, group=group, reduce=mean)
         return params, opt_state, loss
 
     return step

@@ -18,7 +18,8 @@ Counterpart of ``video_spike_tpu/train/base.py:BaseTrainer`` on one device
 - every optimizer of ``ops/optim.make_optimizer`` (AdamW, ``mu_dtype``,
   ``adamw_lowmem``, ``adamw_sr_bf16``, optax's adafactor with its options,
   ``adafactor_lean``) and ``optimizer.gradient_accumulation_steps`` (each
-  micro-step one loader batch; updates land every k-th);
+  micro-step one loader batch; updates land every k-th), by ``ops/step.py``
+  (loads and the best stash are copied into the live leaves);
 - with ``optimizer.param_dtype: bfloat16_sr`` leaves of >= 65,536 elements
   are stored in bf16 with stochastically rounded updates, and with
   ``optimizer.fused_readout`` under ``adafactor`` or ``adafactor_lean``
@@ -37,8 +38,8 @@ Counterpart of ``video_spike_tpu/train/base.py:BaseTrainer`` on one device
   ``save_every`` cadence (the stash is a device copy); at the end the
   in-flight saves are joined, then ``model_best`` (unless the cadence
   flush wrote that epoch) and ``model_last`` (params + optimizer state +
-  step, from a device snapshot: the fused step updates the first kernel in
-  place) are written in the background while ``test_model`` runs, and
+  step, from a device snapshot: the next step may update them in place)
+  are written in the background while ``test_model`` runs, and
   joined before ``test_results.npy`` and the return; SIGTERM / Ctrl-C
   joins the flushes (a failed one is logged) and saves both synchronously;
 - every epoch's line goes to ``<log_dir>/metrics.jsonl`` (``core/tracking``,
@@ -47,9 +48,7 @@ Counterpart of ``video_spike_tpu/train/base.py:BaseTrainer`` on one device
   epoch and for the test split; ``profiling: {enable, dir, steps}`` traces
   ``steps`` steps of the staged or streaming epoch once ``global_step > 2``
   with ``torch.profiler`` into ``dir``, once a run and on rank 0 only; the
-  trace holds the ``vs.*`` ranges of ``core/spans``: ``vs.step`` around
-  each step, within it ``vs.forward``, ``vs.backward``,
-  ``vs.grad_allreduce`` (under a process group) and ``vs.optimizer``, and
+  trace holds ``vs.step`` around each step (``ops/step.py``'s phases) and
   on the streaming epoch ``vs.producer_wait`` between steps;
 - under a process group (``torch.distributed.run``; ``core/runtime``) the
   ranks train data-parallel on the mesh's ``data`` axis
@@ -103,14 +102,15 @@ from video_spike_torch.ops.optim import (
     MASK32,
     apply_updates,
     apply_updates_sr,
-    is_frozen,
     make_optimizer,
 )
 from video_spike_torch.ops.poisson import poisson_nll_mean
+from video_spike_torch.ops.step import train_step
 from video_spike_torch.parallel import multihost as mh
 from video_spike_torch.parallel.mesh import make_mesh
 from video_spike_torch.train.checkpoint import (
     checkpoint_exists,
+    copy_into,
     load_checkpoint,
     save_checkpoint,
     save_checkpoint_async,
@@ -381,30 +381,17 @@ class BaseTrainer:
         apply_fn, frozen = self._apply_updates, self._frozen_paths
         group = self._dp_group
 
-        def train_step(params, opt_state, inputs, ap, n_valid, seed):
-            with span("forward"):
-                leaves = {k: v.detach().requires_grad_(True)
-                          for k, v in params.items()
-                          if not is_frozen(k, frozen)}
+        def standard_step(params, opt_state, inputs, ap, n_valid, seed):
+            def loss_fn(leaves):
                 out = apply({**params, **leaves}, inputs)
-                loss = criterion(out, ap, n_valid)
-            names = list(leaves)
-            with span("backward"):
-                grads = dict(zip(names, torch.autograd.grad(
-                    loss, [leaves[k] for k in names])))
-            with torch.no_grad():
-                loss = loss.detach()
-                if group is not None:
-                    with span("grad_allreduce"):
-                        grads, loss = mh.sum_grads_and_loss(grads, loss,
-                                                            group)
-                with span("optimizer"):
-                    trained = {k: params[k] for k in names}
-                    updates, opt_state = tx.update(grads, opt_state, trained)
-                    params = {**params, **apply_fn(trained, updates, seed)}
+                return criterion(out, ap, n_valid), None
+
+            params, opt_state, loss, _ = train_step(
+                loss_fn, params, opt_state, tx, frozen=frozen, group=group,
+                apply_fn=apply_fn, seed=seed)
             return params, opt_state, loss
 
-        return train_step
+        return standard_step
 
     def _step(self, inputs, ap, n_valid, step_fn=None) -> torch.Tensor:
         if self._profile_dir and self._prof is None and self.global_step > 2:
@@ -873,13 +860,14 @@ class BaseTrainer:
         return f"{self.replica_checksums[-1]:016x}"
 
     def test_model(self) -> Optional[dict]:
+        # copied into the live leaves, which a step updates in place
         if self._best_params is not None:
-            self._set_params(self._best_params)
+            self._set_params(copy_into(self.params, self._best_params))
         elif checkpoint_exists(self.log_dir, "model_best"):
             self._init_if_needed()
             restored = load_checkpoint(self.log_dir, "model_best",
                                        self.device)
-            self._set_params(restored["params"])
+            self._set_params(copy_into(self.params, restored["params"]))
         return self._run_eval(self.test_loader, self.split["eid"]["test"],
                               "test")
 
@@ -934,7 +922,7 @@ class BaseTrainer:
             if "tx" not in tree:
                 raise ValueError("checkpoint holds a fused readout state but "
                                  "this run uses the standard step")
-            self.opt_state = tree["tx"]
+            self.opt_state = copy_into(self.opt_state, tree["tx"])
 
     def save_model(self, name: str = "last", epoch: int = 0,
                    block: bool = True) -> None:
@@ -943,8 +931,8 @@ class BaseTrainer:
         runs the device fetch and the write on a background thread
         (:func:`wait_for_checkpoints` joins it); an async ``last`` first
         copies the live params and optimizer state on the device, since the
-        next fused step updates the first kernel in place (the best stash
-        is a copy already)."""
+        next step may update them in place (the best stash is a copy
+        already)."""
         params = (self._best_params
                   if name == "best" and self._best_params is not None
                   else self.params)
@@ -978,7 +966,7 @@ class BaseTrainer:
         next(iter(self.train_loader))
         self._init_if_needed()
         restored = load_checkpoint(self.log_dir, f"model_{name}", self.device)
-        self._set_params(restored["params"])
+        self._set_params(copy_into(self.params, restored["params"]))
         self._load_opt_state(restored["opt_state"])
         self.global_step = int(restored["global_step"])
         self._start_epoch = int(restored["epoch"]) + 1

@@ -53,6 +53,25 @@ def to_device(tree: Any, device) -> Any:
     return _map(lambda t: t.to(device), tree)
 
 
+def copy_into(live: Any, loaded: Any, where: str = "") -> Any:
+    """``loaded``, each tensor copied into the tensor at its place in the
+    dict tree ``live``, which must have its shape, dtype and device (else
+    ``ValueError``); what is not a tensor passes through. A step that
+    updates ``live`` in place then writes nothing of ``loaded``."""
+    if isinstance(loaded, dict):
+        live = live if isinstance(live, dict) else {}
+        return {k: copy_into(live.get(k), v, f"{where}/{k}")
+                for k, v in loaded.items()}
+    if not isinstance(loaded, torch.Tensor):
+        return loaded
+    want = (loaded.shape, loaded.dtype, loaded.device)
+    if not isinstance(live, torch.Tensor) or (
+            live.shape, live.dtype, live.device) != want:
+        raise ValueError(f"{where}: no live tensor of {want} to load into")
+    with torch.no_grad():
+        return live.copy_(loaded)
+
+
 def snapshot(tree: Any) -> Any:
     """A copy of every tensor on its own device (for a background save of
     tensors the next step updates in place)."""

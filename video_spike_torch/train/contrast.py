@@ -9,10 +9,9 @@ Counterpart of ``video_spike_tpu/train/contrast.py`` (reference
   whole stacked batch and the temperature stay shared), then applies the
   ``loss_fn_`` dispatch (InfoNCE / + recon / MAE-only);
 - the optimizer is AdamW with a constant learning rate, as in the JAX
-  trainer (the yaml's scheduler is not read), stepped in place
-  (``AdamW.step_``: on a card one launch of ``csrc/fused_adamw.cu`` for
-  every leaf and both moments; loaded and stashed parameters are copied
-  into the live leaves, never aliased); masking noise for step k is
+  trainer (the yaml's scheduler is not read), stepped in place by
+  ``ops/step.py`` (loaded and stashed parameters and moments are copied
+  into the live ones, never aliased); masking noise for step k is
   drawn from a ``torch.Generator`` seeded from (seed, k), so a resumed run
   draws the same masks as an uninterrupted one;
 - the whole uint8 pretrain frame array is staged on the device once when it
@@ -41,11 +40,9 @@ Counterpart of ``video_spike_tpu/train/contrast.py`` (reference
 
 The step's losses (every 50 steps) and each validation go to
 ``<log_dir>/metrics.jsonl`` (``core/tracking``, the JAX trainer's keys and
-steps). While a ``torch.profiler`` records, the step's phases are
-``core/spans``: ``vs.step`` (the frame-cache gather and the step) holding
-``vs.forward``, ``vs.backward``, ``vs.grad_allreduce`` (under a process
-group) and ``vs.optimizer``, with ``vs.producer_wait`` (the wait for the
-producer's next batch) between steps.
+steps). While a ``torch.profiler`` records, ``vs.step`` (the frame-cache
+gather and ``ops/step.py``'s phases) alternates with ``vs.producer_wait``
+(the wait for the producer's next batch).
 
 Under a process group (``core/runtime``) the ranks train data-parallel on
 the mesh's ``data`` axis, with the JAX trainer's semantics:
@@ -90,10 +87,12 @@ from video_spike_torch.data.contrast import device_frame_transform
 from video_spike_torch.data.prefetch import background
 from video_spike_torch.ops.contrastive import loss_fn_
 from video_spike_torch.ops.optim import AdamW
+from video_spike_torch.ops.step import train_step
 from video_spike_torch.parallel import multihost as mh
 from video_spike_torch.parallel.mesh import make_mesh
 from video_spike_torch.train.checkpoint import (
     checkpoint_exists,
+    copy_into,
     load_checkpoint,
     save_checkpoint,
     save_checkpoint_async,
@@ -250,45 +249,35 @@ class ContrastTrainer:
         named = dict(self.model.named_parameters())
         gen = self._next_generator()
         size = self.image_size
-        with span("forward"):
+
+        def loss_fn(_):
             if self._is_mae:
                 out = self._global_outputs(self.model(
                     device_frame_transform(trip, size), generator=gen))
-                loss, aux = self.criterion(out, None, None)["loss"], {}
-            else:
-                # (3, B, ...) -> (3B, ...): one large batch with the
-                # [all-ref | all-pos | all-neg] row layout
-                b = trip.shape[1]
-                x = device_frame_transform(
-                    trip.reshape(-1, *trip.shape[2:]), size)
-                out = self.model(x, generator=gen)
-                ref, pos, neg = (self._global_outputs(
-                    {k: v[i * b:(i + 1) * b] if v.ndim > 0 else v
-                     for k, v in out.items()}) for i in range(3))
-                loss_dict = self.criterion(ref, pos, neg)
-                loss = loss_dict["loss"]
-                aux = {k: v.detach() for k, v in loss_dict.items()
-                       if k != "loss"}
-                if "temp" in ref:
-                    aux["temperature"] = ref["temp"].detach()
-        with span("backward"):
-            grads = torch.autograd.grad(loss, list(named.values()),
-                                        allow_unused=True)
-            # a parameter the loss does not reach (ContrastViT's
-            # mask_token, the fixed temperature) has a zero gradient, as
-            # under jax.grad; AdamW still decays it
-            grads = {k: g if g is not None else torch.zeros_like(p)
-                     for (k, p), g in zip(named.items(), grads)}
-        with torch.no_grad():
-            if self._dp_group is not None:
-                # each rank's gradient holds its own rows' share of the loss
-                with span("grad_allreduce"):
-                    grads = mh.sum_across(grads, self._dp_group)
-            with span("optimizer"):
-                # the leaves and moments in place: one kernel launch on a
-                # card (ops/fused_adamw.py)
-                self.tx.step_(named, grads, self.opt_state)
-        return {"loss": loss.detach(), **aux}
+                return self.criterion(out, None, None)["loss"], {}
+            # (3, B, ...) -> (3B, ...): one large batch with the
+            # [all-ref | all-pos | all-neg] row layout
+            b = trip.shape[1]
+            x = device_frame_transform(trip.reshape(-1, *trip.shape[2:]),
+                                       size)
+            out = self.model(x, generator=gen)
+            ref, pos, neg = (self._global_outputs(
+                {k: v[i * b:(i + 1) * b] if v.ndim > 0 else v
+                 for k, v in out.items()}) for i in range(3))
+            loss_dict = self.criterion(ref, pos, neg)
+            aux = {k: v.detach() for k, v in loss_dict.items()
+                   if k != "loss"}
+            if "temp" in ref:
+                aux["temperature"] = ref["temp"].detach()
+            return loss_dict["loss"], aux
+
+        # each rank's gradient holds its own rows' share of the loss, which
+        # is the global batch's already: only the gradients are summed
+        _, _, loss, aux = train_step(
+            loss_fn, named, self.opt_state, self.tx, leaves=named,
+            group=self._dp_group,
+            reduce=lambda g, loss, group: (mh.sum_across(g, group), loss))
+        return {"loss": loss, **aux}
 
     # ------------------------------------------------------------------
     # input staging
@@ -639,7 +628,7 @@ class ContrastTrainer:
         self._init_if_needed()
         restored = load_checkpoint(self.log_dir, name, self.device)
         self._set_params(restored["params"])
-        self.opt_state = restored["opt_state"]
+        self.opt_state = copy_into(self.opt_state, restored["opt_state"])
         self._start_step = int(restored["step"])
         self._step_count = self._start_step
         self._best_bps = float(restored["best_bps"])

@@ -21,15 +21,15 @@ reports bits per spike and R² per session over its real neurons only.
 - Improvements of eval bps stash a device copy of the params; it is written
   to ``model_best.pt`` in the background at the ``save_every`` cadence and
   at the end. ``model_last.pt`` (params, optimizer state, epoch, step, best
-  bps) is the resume point: written after training in the background,
-  overlapped with the test eval (no step follows to update its tensors),
-  and joined before ``test_results.npy``; SIGTERM / Ctrl-C joins the
+  bps) is the resume point: a device copy written after training in the
+  background, overlapped with the test eval, and joined before
+  ``test_results.npy``; SIGTERM / Ctrl-C joins the
   flushes (a failed one is logged), saves it synchronously and returns.
   ``test_results.npy`` holds ``test_res`` and ``per_session``. The
   streaming loop copies each batch synchronously, as in the JAX trainer.
 - The optimizer is ``ops/optim.make_optimizer``'s, every variant and
-  gradient accumulation included, applied with the plain
-  ``apply_updates`` as in the JAX trainer.
+  gradient accumulation included, by ``ops/step.py`` inside a ``vs.step``
+  (loads and the best stash are copied into the live leaves).
 - Every epoch's line goes to ``<log_dir>/metrics.jsonl``
   (``core/tracking``); ``save_plot`` fetches the eval and test outputs and
   writes ``best_{trial,neuron}_<eid5>_<tag>.png`` per session at each new
@@ -61,18 +61,22 @@ import torch
 
 from video_spike_torch.core.device import resolve_device
 from video_spike_torch.core.logging import logging as make_logger
+from video_spike_torch.core.spans import span
 from video_spike_torch.core.tracking import Tracker
 from video_spike_torch.data.dataset import SessionDataset, split_dataset
 from video_spike_torch.ops.metrics import device_eval_metrics, metrics_list
-from video_spike_torch.ops.optim import apply_updates, make_optimizer
+from video_spike_torch.ops.optim import make_optimizer
 from video_spike_torch.ops.poisson import poisson_nll
+from video_spike_torch.ops.step import train_step
 from video_spike_torch.parallel import multihost as mh
 from video_spike_torch.parallel.mesh import make_mesh
 from video_spike_torch.train.checkpoint import (
     checkpoint_exists,
+    copy_into,
     load_checkpoint,
     save_checkpoint,
     save_checkpoint_async,
+    snapshot,
     wait_for_checkpoints,
 )
 
@@ -101,29 +105,32 @@ def make_vtt_tensor_step(model, params: Dict[str, torch.Tensor], mesh, tx):
     (``parallel/tensor.split_over_model``), and ``step(params, opt_state,
     video, ap, sids, nmask)`` takes this rank's data block of the batch, with
     :func:`masked_poisson_nll` over the global batch, value and grad, and
-    ``tx`` on each rank's blocks (``parallel/shard_map_step.
-    make_tensor_train_step``). Returns ``(step, params, opt_state,
-    placements)``; ``multihost.gather_tree(params, placements)`` gives the
-    full values back."""
+    ``tx`` on each rank's blocks (copies of ``params``', stepped in place).
+    The gradients and the loss are summed over the ``data`` group only: the
+    split layers all-reduce their input gradients. Returns ``(step,
+    params, opt_state, placements)``; ``multihost.gather_tree(params,
+    placements)`` gives the full values back."""
     from video_spike_torch.models.vtt import vtt_sharding_rules
-    from video_spike_torch.parallel.shard_map_step import (
-        make_tensor_train_step,
-    )
     from video_spike_torch.parallel.tensor import split_over_model
 
     rules = vtt_sharding_rules(params, mesh)
-    params = mh.put_tree(params, rules)
+    params = {k: v.clone() for k, v in mh.put_tree(params, rules).items()}
     _, whole = split_over_model(model, rules)
     if whole:
         raise ValueError(f"the tensor-sharded step runs every split leaf "
                          f"split; these it cannot: {list(whole)}")
     group = mesh.group("data")
 
-    def loss_fn(p, video, ap, sids, nmask):
-        out = torch.func.functional_call(model, p, (video, sids))
-        return masked_poisson_nll(out, ap, nmask, video.shape[0], group)
+    def step(params, opt_state, video, ap, sids, nmask):
+        def loss_fn(leaves):
+            out = torch.func.functional_call(model, leaves, (video, sids))
+            return masked_poisson_nll(out, ap, nmask, video.shape[0],
+                                      group), None
 
-    step = make_tensor_train_step(loss_fn, tx, mesh)
+        params, opt_state, loss, _ = train_step(loss_fn, params, opt_state,
+                                                tx, group=group)
+        return params, opt_state, loss
+
     return step, params, tx.init(params), rules
 
 
@@ -242,18 +249,16 @@ class MultiSessionTrainer:
         self._initialized = True
 
     def _train_step(self, video, ap, sids, nmask, n_valid) -> torch.Tensor:
-        named = dict(self.model.named_parameters())
-        out = self.model(video, sids)
-        loss = masked_poisson_nll(out, ap, nmask, n_valid, self._dp_group)
-        grads = dict(zip(named, torch.autograd.grad(loss,
-                                                    list(named.values()))))
-        with torch.no_grad():
-            grads, loss = mh.sum_grads_and_loss(grads, loss.detach(),
-                                                self._dp_group)
-            params = self.params
-            updates, self.opt_state = self.tx.update(grads, self.opt_state,
-                                                     params)
-            self._set_params(apply_updates(params, updates))
+        def loss_fn(_):
+            return masked_poisson_nll(self.model(video, sids), ap, nmask,
+                                      n_valid, self._dp_group), None
+
+        with span("step"):
+            params, self.opt_state, loss, _ = train_step(
+                loss_fn, self.params, self.opt_state, self.tx,
+                leaves=dict(self.model.named_parameters()),
+                group=self._dp_group)
+            self._set_params(params)
         self.global_step += 1
         return loss
 
@@ -506,9 +511,9 @@ class MultiSessionTrainer:
     # ------------------------------------------------------------------
     def _save_last(self, epoch: int, block: bool = True) -> None:
         """True-resume checkpoint: params + optimizer state + counters.
-        ``block=False`` (after training only: no step follows to replace
-        these tensors) fetches and writes on a background thread,
-        overlapped with the test eval."""
+        ``block=False`` fetches and writes a device copy of them on a
+        background thread, overlapped with the test eval (the best params
+        are copied into the live leaves meanwhile)."""
         tree = {"params": self.params, "opt_state": self.opt_state,
                 "epoch": epoch, "global_step": self.global_step,
                 "best_bps": float(self._best_bps)}
@@ -517,7 +522,7 @@ class MultiSessionTrainer:
         elif block:
             save_checkpoint(self.log_dir, "model_last", tree)
         else:
-            save_checkpoint_async(self.log_dir, "model_last", tree)
+            save_checkpoint_async(self.log_dir, "model_last", snapshot(tree))
 
     def _flush_best(self, block: bool = True) -> None:
         """Write the stashed best params unless that epoch is on disk;
@@ -554,8 +559,8 @@ class MultiSessionTrainer:
         next(iter(self.train_loaders[self.eids[0]]))
         self._init_if_needed()
         restored = load_checkpoint(self.log_dir, f"model_{name}", self.device)
-        self._set_params(restored["params"])
-        self.opt_state = restored["opt_state"]
+        self._set_params(copy_into(self.params, restored["params"]))
+        self.opt_state = copy_into(self.opt_state, restored["opt_state"])
         self.global_step = int(restored["global_step"])
         self._start_epoch = int(restored["epoch"]) + 1
         self._best_bps = float(restored["best_bps"])
@@ -613,12 +618,13 @@ class MultiSessionTrainer:
         self._flush_best(block=False)
         self.log.info(f"trained in {time.time()-t0:.1f}s; "
                       f"best eval_bps={self._best_bps}")
+        # copied into the live leaves, which a step updates in place
         if self._best_params is not None:
-            self._set_params(self._best_params)
+            self._set_params(copy_into(self.params, self._best_params))
         elif checkpoint_exists(self.log_dir, "model_best"):
             restored = load_checkpoint(self.log_dir, "model_best",
                                        self.device)
-            self._set_params(restored["params"])
+            self._set_params(copy_into(self.params, restored["params"]))
         test = self._eval(self.test_loaders, "test",
                           return_outputs=want_figs)
         wait_for_checkpoints()   # artifacts must exist before returning
