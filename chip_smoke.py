@@ -43,6 +43,11 @@ Phases of the one-card run, one JSON line each on stdout:
     loop's on the card over 3 steps, one launch a step; timed beside its
     bound (28 bytes an element), the per-leaf loop's time and device time,
     and ``torch._fused_adamw_``'s time as a yardstick the port never calls;
+    then at VideoMAE-Base's 203 leaves (94,222,080 elements) its
+    out-of-place entry (``AdamW.step``, the VideoMAE pretraining step's):
+    bitwise the per-leaf loop over 3 steps with what it was handed
+    unchanged, and its device time and host time a call beside its bound
+    and the in-place entry's on the same leaves;
 2c. flash_attention: the fused attention kernels (forward and backward)
     through ``attention_bshd`` on the packed qkv views at the shapes the
     cells and the smoke's models call it (VideoMAE's decoder and encoder,
@@ -232,6 +237,7 @@ DP4_WORLD = 4                # data-parallel ranks whose gathered batch the
                              # kernel takes at 4 x BATCH rows
 SEEDS = (0, 7, (1 << 32) - 1)
 REPS = 3                     # timing windows per measurement
+SLEEP_CYCLES = 400_000_000   # ~0.2 s of the card's clock ahead of a window
 
 # VTT flagship (bench.py:bench_vtt_flagship): 5 sessions, N_max = 668
 VTT_NEURONS = (668, 600, 500, 400, 300)
@@ -609,6 +615,123 @@ def _ssl_leaves() -> dict:
     return {k: tuple(p.shape) for k, p in model.named_parameters()}
 
 
+def _videomae_leaves() -> dict:
+    """VideoMAEForPreTraining's leaf shapes at ``PROBE_YAML``'s widths (203
+    f32 leaves, 94,222,080 elements), read on the meta device."""
+    import yaml
+
+    from video_spike_torch.models.videomae import VideoMAEForPreTraining
+
+    cfg = yaml.safe_load((ROOT / PROBE_YAML).read_text())
+    cfg = {k: v for k, v in cfg.items() if k not in ("encoder", "decoder")}
+    model = VideoMAEForPreTraining.from_config(cfg, device="meta")
+    return {k: tuple(p.shape) for k, p in model.named_parameters()}
+
+
+def _queued_ms(fn, iters: int) -> tuple:
+    """(device ms, host ms) a call of ``fn``: ``iters`` calls queued behind
+    a sleep kernel, so the card runs them back to back whatever the host's
+    pace (CUDA events around them), and the host's time to queue each."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) / iters * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host_ms
+
+
+def _fused_adamw_videomae(dev) -> dict:
+    """The out-of-place AdamW (``AdamW.step``) at VideoMAE-Base's leaves:
+    p', mu' and nu' bitwise the per-leaf loop's after each of 3 steps, one
+    launch a step, the p, mu and nu it was handed unchanged; then its time
+    a call and the in-place entry's on the same leaves (``_queued_ms``,
+    the median of REPS windows of 20 calls) beside the bound."""
+    import torch
+
+    from video_spike_torch.ops import fused_adamw
+    from video_spike_torch.ops import optim as op
+
+    shapes = _videomae_leaves()
+    n = sum(math.prod(s) for s in shapes.values())
+    if len(shapes) != 203 or n != PRETRAIN_PARAMS:
+        raise AssertionError(f"VideoMAE leaves: {len(shapes)}, {n} elements")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    p = {k: 0.02 * torch.randn(s, generator=gen, device=dev)
+         for k, s in shapes.items()}
+    ref_p = {k: v.clone() for k, v in p.items()}
+    tx, ref_tx = (op.AdamW(SSL_LR, weight_decay=0.01, eps=1e-8)
+                  for _ in range(2))
+    state, ref_state = tx.init(p), ref_tx.init(ref_p)
+
+    def grads():
+        return {k: torch.randn(s, generator=gen, device=dev)
+                * 10.0 ** -(2 + i % 4) for i, (k, s) in
+                enumerate(shapes.items())}
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    launches0 = fused_adamw.step.launches
+    unequal, written = [], []
+    for step in range(3):
+        g = grads()
+        upd, ref_state = ref_tx.update(g, ref_state, ref_p)
+        ref_p = op.apply_updates(ref_p, upd)
+        handed = [(d, {k: t.clone() for k, t in d.items()})
+                  for d in (p, state["mu"], state["nu"])]
+        p, state = tx.step(p, g, state)
+        torch.cuda.synchronize()
+        written += [(step, k) for d, kept in handed for k in d
+                    if not torch.equal(bits(d[k]), bits(kept[k]))]
+        unequal += [(step, k) for k in shapes if not all(
+            torch.equal(bits(a), bits(b))
+            for a, b in ((p[k], ref_p[k]), (state["mu"][k],
+                                            ref_state["mu"][k]),
+                         (state["nu"][k], ref_state["nu"][k])))]
+    check_launches = fused_adamw.step.launches - launches0
+    del upd, ref_p, ref_state, handed
+    torch.cuda.empty_cache()
+
+    g = grads()
+    in_p = {k: v.clone() for k, v in p.items()}
+    in_state = {"count": state["count"],
+                **{w: {k: v.clone() for k, v in state[w].items()}
+                   for w in ("mu", "nu")}}
+    built0 = fused_adamw.step.tables_built
+    out_runs = [_queued_ms(lambda: tx.step(p, g, state), 20)
+                for _ in range(REPS)]
+    tables = fused_adamw.step.tables_built - built0
+    in_runs = [_queued_ms(lambda: ref_tx.step_(in_p, g, in_state), 20)
+               for _ in range(REPS)]
+    del p, g, state, in_p, in_state
+    torch.cuda.empty_cache()
+    ms = statistics.median(r[0] for r in out_runs)
+    bound_ms = 28 * n / HBM_BYTES_PER_S * 1e3
+    out = {"leaves": len(shapes), "elements": n, "bitwise_steps": 3,
+           "unequal": unequal[:10], "handed_written": written[:10],
+           "launches_in_checks": check_launches, "ms": ms,
+           "ms_windows": [r[0] for r in out_runs],
+           "host_ms": statistics.median(r[1] for r in out_runs),
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "share_of_bound": bound_ms / ms,
+           "tables_built_in_timing": tables,
+           "in_place_ms": statistics.median(r[0] for r in in_runs),
+           "in_place_host_ms": statistics.median(r[1] for r in in_runs)}
+    if unequal or written or check_launches != 3:
+        raise AssertionError(f"out-of-place AdamW against the per-leaf "
+                             f"loop: {out}")
+    return out
+
+
 def phase_fused_adamw() -> dict:
     """The multi-tensor AdamW at the SSL model's leaves: p, mu and nu
     bitwise the per-leaf loop's on the card after each of 3 steps; then one
@@ -713,12 +836,14 @@ def phase_fused_adamw() -> dict:
            "grid": tx._fused_tables.grid,
            "chunks": tx._fused_tables.n_chunks,
            "segments": tx._fused_tables.n_segs}
-    emit("fused_adamw", **out)
     if unequal or check_launches != 3:
+        emit("fused_adamw", **out)
         raise AssertionError(f"fused AdamW against the per-leaf loop: "
                              f"{len(unequal)} leaves differ "
                              f"({unequal[:10]}), {check_launches} launches "
                              f"for 3 steps")
+    out["videomae"] = _fused_adamw_videomae(dev)
+    emit("fused_adamw", **out)
     return out
 
 
@@ -5363,13 +5488,17 @@ def main(argv=None) -> int:
     from video_spike_torch.ops import fused_adamw
 
     # this process's fused-AdamW launches in each path's own run (ranks in
-    # child processes are not counted here)
-    adamw_by_path = {}
+    # child processes are not counted here): in place, and into new
+    # tensors with the tables that built
+    adamw_by_path, adamw_out_by_path = {}, {}
 
     def counted(path, phase, *args):
-        fused_adamw.step_.launches = 0
+        fused_adamw.step_.launches = fused_adamw.step.launches = 0
+        built = fused_adamw.step.tables_built
         out = phase(*args)
         adamw_by_path[path] = fused_adamw.step_.launches
+        adamw_out_by_path[path] = [fused_adamw.step.launches,
+                                   fused_adamw.step.tables_built - built]
         return out
 
     phase_build()
@@ -5448,13 +5577,20 @@ def main(argv=None) -> int:
     kernel["probe"]["launches"] = probe["launches"]
     kernel["b64"]["launches"] = dist["dp4"]["launches"]
     # a bare AdamW steps in place (ops/step.py): one launch a step on the
-    # SSL, VTT and CEBRA paths; the VideoMAE pretraining step (new tensors
-    # a step), the fused readout's, accumulation's and the frozen probe's
-    # optimizers, and the paths that do not train, launch none; the ranks'
-    # own counts are checked in their phases (dp: 0, tensor-sharded VTT:
-    # one a step)
+    # SSL, VTT and CEBRA paths; the VideoMAE pretraining step one launch a
+    # step into new tensors, with one table; the fused readout's,
+    # accumulation's and the frozen probe's optimizers, and the paths that
+    # do not train, launch neither; the ranks' own counts are checked in
+    # their phases (dp: 0, tensor-sharded VTT: one a step in place)
     adamw["launches"] = sum(adamw_by_path.values())
     adamw["launches_by_path"] = adamw_by_path
+    adamw["out_launches_tables_by_path"] = adamw_out_by_path
+    if adamw_out_by_path["vmae_pretrain"] != [PRETRAIN_STEPS, 1] or any(
+            adamw_out_by_path[p][0] for p in adamw_out_by_path
+            if p != "vmae_pretrain"):
+        raise AssertionError(f"the out-of-place AdamW did not launch once "
+                             f"a VideoMAE pretraining step with one table, "
+                             f"or launched elsewhere: {adamw_out_by_path}")
     adamw["launches_by_rank"] = {
         "dp": dist["adamw_launches_per_rank"],
         **{f"tensor_vtt_{d}": tensor["vtt"][d]["adamw_launches_by_rank"]

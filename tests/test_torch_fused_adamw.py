@@ -1,25 +1,29 @@
-"""The in-place AdamW step (``ops/fused_adamw.py``, ``AdamW.step_``) on the
-CPU, the route ``ops/step.py`` takes to it, and the trainers that step
-through it.
+"""The fused AdamW steps (``ops/fused_adamw.py``: ``AdamW.step_`` in place,
+``AdamW.step`` into new tensors) on the CPU, the routes ``ops/step.py``
+takes to them, and the trainers that step through them.
 
-On the CPU ``step_`` runs the per-leaf loop and copies into the leaves, so
-it is held bitwise against ``AdamW.update`` + ``apply_updates`` over 3
-steps, on ContrastViTMAE's 255 leaves (the SSL model's depths and heads,
-with its 1-element temperature and 3-element ``proj.bias``, at small
-widths). The kernel's work table (``segments``) is checked at the SSL
-model's full leaf sizes, read on the meta device. The kernel itself runs
+On the CPU ``step_`` runs the per-leaf loop and copies into the leaves,
+and ``step`` runs it into new tensors, so both are held bitwise against
+``AdamW.update`` + ``apply_updates`` over 3 steps, on ContrastViTMAE's 255
+leaves (the SSL model's depths and heads, with its 1-element temperature
+and 3-element ``proj.bias``, at small widths); ``step`` also leaves what it
+was handed as it was. The kernel's work table (``segments``) is checked at
+the SSL model's full leaf sizes, and ``step``'s layout of its new tensors
+at VideoMAE-Base's, both read on the meta device. The kernel itself runs
 only on a card (``tests/test_torch_kernels_gpu.py``).
 
-``ops/step.update`` takes ``step_`` for a bare AdamW only; ``Frozen``,
-``MultiSteps``, ``mu_dtype`` and Adafactor take ``update`` and leave the
-leaves they were given alone. Both routes give the per-leaf loop's bits.
+``ops/step.update`` takes ``step_`` for a bare AdamW, or ``step`` when
+asked not to step in place; ``Frozen``, ``MultiSteps``, ``mu_dtype`` and
+Adafactor take ``update`` and leave the leaves they were given alone. Every
+route gives the per-leaf loop's bits.
 
 Every trainer on the in-place route (the SSL trainer, the supervised
-trainer with AdamW, the multi-session VTT trainer, CEBRA and the VideoMAE
-pretraining step) updates its leaves and moments in place, so nothing it
-was handed may share their storage: a further step leaves the best stash,
-a loaded checkpoint's tensors, an earlier fit's params and what a save
-wrote (a background save reads after the next step here) as they were.
+trainer with AdamW, the multi-session VTT trainer and CEBRA) updates its
+leaves and moments in place, so nothing it was handed may share their
+storage: a further step leaves the best stash, a loaded checkpoint's
+tensors, an earlier fit's params and what a save wrote (a background save
+reads after the next step here) as they were. The VideoMAE pretraining
+step steps into new tensors and leaves its own arguments as they were.
 """
 
 import copy
@@ -68,6 +72,17 @@ def _model(seed: int = 0) -> ContrastViTMAE:
     model = ContrastViTMAE.from_config(DEEP_TINY, dtype=torch.float32)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model
+
+
+def _videomae_shapes() -> tuple:
+    """VideoMAE-Base's 203 leaf shapes (the ``vmae.pretrain`` cell's model),
+    read on the meta device."""
+    from video_spike_torch.models.videomae import VideoMAEForPreTraining
+
+    cfg = json.loads((REPO / "benchmark/configs/videomae_base_pretrain.json")
+                     .read_text())["config"]["model"]
+    model = VideoMAEForPreTraining.from_config(cfg, device="meta")
+    return tuple(p.shape for p in model.parameters())
 
 
 def _ssl_numels() -> list:
@@ -125,25 +140,109 @@ def test_step_in_place_equals_update_then_apply(case):
                                _bits(ref_state["nu"][k])), (step, k)
 
 
-# (optimizer, update's in_place argument, whether it steps in place)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_step_into_new_tensors_equals_update_then_apply(case):
+    """``AdamW.step`` returns new dicts whose leaves, moments and count are
+    the per-leaf loop's, bit for bit, after each of 3 steps, and leaves the
+    leaves, moments and count it was handed, and a state kept from two
+    steps before, as they were."""
+    kw = CASES[case]
+    lr = (cosine_onecycle_schedule(100, 5e-5, 0.15, 10, 1e4)
+          if kw.get("schedule") else 5e-5)
+    dtype = kw.get("leaf_dtype", torch.float32)
+    start = {k: p.detach().to(dtype)
+             for k, p in _model().named_parameters()}
+    txs = [AdamW(lr, weight_decay=0.01, eps=1e-8,
+                 mu_dtype=kw.get("mu_dtype")) for _ in range(2)]
+    ref_p = {k: v.clone() for k, v in start.items()}
+    ref_state = txs[0].init(ref_p)
+    p = {k: v.clone() for k, v in start.items()}
+    state = txs[1].init(p)
+    kept = []
+    rng = np.random.default_rng(4)
+    for step in range(3):
+        g = {k: torch.from_numpy(rng.normal(
+            0, 10.0 ** -(2 + i % 4), v.shape).astype(np.float32)).to(dtype)
+             for i, (k, v) in enumerate(start.items())}
+        upd, ref_state = txs[0].update(g, ref_state, ref_p)
+        ref_p = apply_updates(ref_p, upd)
+        handed = (_copies(p), _copies(state["mu"]), _copies(state["nu"]))
+        kept.append((p, state, handed))
+        p, state = txs[1].step(p, g, state)
+        assert state["count"] == ref_state["count"] == step + 1
+        for k in start:
+            assert torch.equal(_bits(p[k]), _bits(ref_p[k])), (step, k)
+            assert torch.equal(_bits(state["mu"][k]),
+                               _bits(ref_state["mu"][k])), (step, k)
+            assert torch.equal(_bits(state["nu"][k]),
+                               _bits(ref_state["nu"][k])), (step, k)
+    for step, (old_p, old_state, handed) in enumerate(kept):
+        assert old_state["count"] == step
+        for got, want in zip((old_p, old_state["mu"], old_state["nu"]),
+                             handed):
+            assert got.keys() == want.keys()
+            for k in want:
+                assert torch.equal(_bits(got[k]), _bits(want[k])), (step, k)
+
+
+@pytest.mark.parametrize("model", ["videomae", "odd"])
+def test_step_lays_each_leaf_out_at_a_multiple_of_four(model):
+    """``step``'s new tensors are views of three flat buffers: each leaf at
+    an offset that is a multiple of 4 elements (16 bytes, so the kernel
+    takes float4 where a leaf's input pointers are aligned too), in its own
+    shape, the leaves in order with no overlap, the buffer no longer than
+    the leaves padded to 4; the output pointers the kernel's table gets
+    are those views' ``data_ptr``s."""
+    shapes = (_videomae_shapes() if model == "videomae" else tuple(
+        torch.Size(s) for s in ((1,), (3,), (5,), (130, 129), (), (0,),
+                                (2, 3, 4), (7,))))
+    keys = tuple(f"leaf{i}" for i in range(len(shapes)))
+    outs = fused_adamw._Outputs.of(keys, shapes)
+    numels = [int(np.prod(s, dtype=np.int64)) for s in shapes]
+    if model == "videomae":
+        assert len(shapes) == 203 and sum(numels) == 94_222_080
+    assert outs.total == sum(-(-n // 4) * 4 for n in numels)
+    bufs = [torch.empty(outs.total) for _ in range(3)]
+    views = [outs.views(b) for b in bufs]
+    end = 0
+    for i, (k, shape, n) in enumerate(zip(keys, shapes, numels)):
+        off = int(outs.offsets[i])
+        assert off % 4 == 0 and off >= end
+        end = off + n
+        for b, v in zip(bufs, views):
+            assert v[k].shape == shape and v[k].is_contiguous()
+            assert v[k].untyped_storage().data_ptr() == b.data_ptr()
+            assert v[k].storage_offset() == off
+    assert end <= outs.total
+    ptrs = fused_adamw.out_pointers([b.data_ptr() for b in bufs],
+                                    outs.offsets)
+    assert ptrs.shape == (len(shapes), 3)
+    assert all(ptrs[i, j] == views[j][k].data_ptr() for j in range(3)
+               for i, (k, n) in enumerate(zip(keys, numels)) if n)
+
+
+# (optimizer, update's in_place argument, the AdamW entry it takes: None
+# for ``tx.update`` and ``apply_updates``)
 ROUTES = {
-    "adamw": (lambda: AdamW(1e-2), True, True),
-    "adamw_not_in_place": (lambda: AdamW(1e-2), False, False),
-    "frozen": (lambda: Frozen(AdamW(1e-2), ("b",)), True, False),
-    "multisteps": (lambda: MultiSteps(AdamW(1e-2), 2), True, False),
-    "mu_bf16": (lambda: AdamW(1e-2, mu_dtype=torch.bfloat16), True, False),
-    "adafactor": (lambda: Adafactor(1e-2), True, False),
+    "adamw": (lambda: AdamW(1e-2), True, "step_"),
+    "adamw_not_in_place": (lambda: AdamW(1e-2), False, "step"),
+    "frozen": (lambda: Frozen(AdamW(1e-2), ("b",)), True, None),
+    "multisteps": (lambda: MultiSteps(AdamW(1e-2), 2), True, None),
+    "mu_bf16": (lambda: AdamW(1e-2, mu_dtype=torch.bfloat16), True, None),
+    "adafactor": (lambda: Adafactor(1e-2), True, None),
 }
 
 
 @pytest.mark.parametrize("name", sorted(ROUTES))
 def test_update_routes_by_the_optimizer(monkeypatch, name):
-    """``ops/step.update`` steps a bare AdamW in place through ``step_``
-    and every other optimizer, or a bare AdamW with ``in_place=False``,
-    through ``update`` and ``apply_updates``, leaving the leaves and the
-    state it was given as they were; either way the leaves and the state
-    are the per-leaf loop's, bit for bit."""
-    make, asked, in_place = ROUTES[name]
+    """``ops/step.update`` steps a bare AdamW in place through ``step_``,
+    or into new tensors through ``step`` with ``in_place=False`` (on the
+    CPU the per-leaf loop), and every other optimizer through ``update``
+    and ``apply_updates``; off the in-place route it leaves the leaves and
+    the state it was given as they were; either way the leaves and the
+    state are the per-leaf loop's, bit for bit."""
+    make, asked, route = ROUTES[name]
+    in_place = route == "step_"
     tx, ref = make(), make()
     rng = np.random.default_rng(1)
     params = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32))
@@ -155,16 +254,19 @@ def test_update_routes_by_the_optimizer(monkeypatch, name):
     upd, want_state = ref.update(grads, ref.init(kept), kept)
     want = apply_updates(kept, upd)
     routes = []
-    real = AdamW.step_
-    monkeypatch.setattr(AdamW, "step_", lambda self, *a: (
-        routes.append("step_"), real(self, *a))[1])
+    for entry in ("step_", "step"):
+        real = getattr(AdamW, entry)
+        monkeypatch.setattr(AdamW, entry, lambda self, *a, _e=entry,
+                            _real=real: (routes.append(_e),
+                                         _real(self, *a))[1])
     kept_state = copy.deepcopy(state)
     new, new_state = update(tx, params, grads, state, in_place=asked)
     assert steps_in_place(tx) == name.startswith("adamw")
-    assert routes == (["step_"] if in_place else [])
+    assert routes == ([route] if route else [])
     assert (new is params and new_state is state) == in_place
     if not in_place:
         _assert_same(params, kept)
+        assert state.get("count") == kept_state.get("count")
         for what in ("mu", "nu"):
             if what in state:
                 _assert_same(state[what], kept_state[what])

@@ -39,12 +39,17 @@ bf16 expression's.
 
 The multi-tensor AdamW (``csrc/fused_adamw.cu``) is held bitwise against
 the per-leaf loop on the card (``AdamW.update`` + ``apply_updates``, the
-same f32 operations in the same order) over 3 steps: at the SSL model's 255
-leaf shapes (ContrastViTMAE over ViT-MAE-Base, 111,002,116 elements, with
-its 1- and 3-element leaves), and at odd sizes in views that start 4 and 8
-bytes off a 16-byte boundary; and over 3 steps of the VideoMAE pretraining
-step, the multi-session VTT trainer and CEBRA (strided gradients), which
-take it through ``ops/step.py``, on the gradients each step hands it.
+same f32 operations in the same order) over 3 steps: in place at the SSL
+model's 255 leaf shapes (ContrastViTMAE over ViT-MAE-Base, 111,002,116
+elements, with its 1- and 3-element leaves), and at odd sizes in views that
+start 4 and 8 bytes off a 16-byte boundary; into new tensors at VideoMAE-
+Base's 203 leaf shapes, at odd sizes (1, 3, 5 and 130 x 129 elements)
+with unaligned views and at its most leaves (576), leaving what it was
+handed, and a state kept from two steps before, as they were; and over 3
+steps of the VideoMAE pretraining step (into new tensors), the
+multi-session VTT trainer and CEBRA (strided gradients; in place), which
+take it through ``ops/step.py``, on the gradients each step hands it, one
+launch a step.
 """
 
 import copy
@@ -374,6 +379,19 @@ def _bits32(t: torch.Tensor) -> torch.Tensor:
     return t.detach().contiguous().view(torch.int32)
 
 
+def _videomae_leaf_shapes() -> dict:
+    """VideoMAEForPreTraining's leaves at ``configs/model/videomae/
+    videomae.yaml``'s widths (VideoMAE-Base: 203 leaves, 94,222,080
+    elements), read on the meta device."""
+    from video_spike_torch.models.videomae import VideoMAEForPreTraining
+
+    cfg = yaml.safe_load((REPO / "configs/model/videomae/videomae.yaml")
+                         .read_text())
+    cfg = {k: v for k, v in cfg.items() if k not in ("encoder", "decoder")}
+    model = VideoMAEForPreTraining.from_config(cfg, device="meta")
+    return {k: tuple(p.shape) for k, p in model.named_parameters()}
+
+
 ODD_SHAPES = {"one": (1,), "three": (3,), "five": (5,), "seven": (7,),
               "ragged": (1023,), "wide": (4097,), "big": (65_537,),
               "matrix": (129, 33), "scalar": ()}
@@ -494,6 +512,106 @@ def test_fused_adamw_cuda_leaves_never_take_the_plain_version(cuda_device,
     assert fused_adamw.step_.launches == before + 1
 
 
+OUT_SHAPES = {"one": (1,), "three": (3,), "five": (5,),
+              "matrix": (130, 129)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,offset,g_offset", [
+    ("odd", 0, 1), ("odd", 1, 3), ("videomae", 0, 0)])
+def test_fused_adamw_into_new_tensors_matches_the_per_leaf_loop(
+        cuda_device, case, offset, g_offset):
+    """``AdamW.step``: p', mu' and nu' bitwise the per-leaf loop's after
+    each of 3 steps, one launch a step; the p, mu, nu and count it was
+    handed bit-identical after the step. ``offset`` floats shift the first
+    step's p, mu and nu off a 16-byte boundary, ``g_offset`` the gradients
+    of every step (an unaligned view)."""
+    shapes = _videomae_leaf_shapes() if case == "videomae" else OUT_SHAPES
+    if case == "videomae":
+        assert len(shapes) == 203 and sum(
+            int(np.prod(s)) for s in shapes.values()) == 94_222_080
+    gen = torch.Generator(device=cuda_device).manual_seed(19)
+    sched = cosine_onecycle_schedule(100, 5e-5, 0.15, 10, 1e4)
+    ref_tx, tx = (AdamW(sched, weight_decay=0.01, eps=1e-8)
+                  for _ in range(2))
+    start = {k: 0.02 * torch.randn(s, generator=gen, device=cuda_device)
+             for k, s in shapes.items()}
+    ref_p = {k: v.clone() for k, v in start.items()}
+    ref_state = ref_tx.init(ref_p)
+    p = {k: _leaf(s, offset, cuda_device, start[k])
+         for k, s in shapes.items()}
+    state = {"count": 0,
+             "mu": {k: _leaf(s, offset, cuda_device, 0.0)
+                    for k, s in shapes.items()},
+             "nu": {k: _leaf(s, offset, cuda_device, 0.0)
+                    for k, s in shapes.items()}}
+    for step in range(3):
+        g = {k: torch.randn(s, generator=gen, device=cuda_device)
+             * 10.0 ** -(2 + i % 4) * (i != 0)
+             for i, (k, s) in enumerate(shapes.items())}
+        upd, ref_state = ref_tx.update(g, ref_state, ref_p)
+        ref_p = apply_updates(ref_p, upd)
+        g_k = {k: _leaf(s, g_offset, cuda_device, g[k])
+               for k, s in shapes.items()}
+        handed = {f"{what}:{k}": t.clone() for what, d in (
+            ("p", p), ("mu", state["mu"]), ("nu", state["nu"]))
+            for k, t in d.items()}
+        launches = fused_adamw.step.launches, fused_adamw.step_.launches
+        new_p, new_state = tx.step(p, g_k, state)
+        torch.cuda.synchronize()
+        assert (fused_adamw.step.launches, fused_adamw.step_.launches) == (
+            launches[0] + 1, launches[1])
+        assert state["count"] == step
+        assert new_state["count"] == ref_state["count"] == step + 1
+        for what, d in (("p", p), ("mu", state["mu"]), ("nu", state["nu"])):
+            for k, t in d.items():
+                assert torch.equal(_bits32(t), _bits32(
+                    handed[f"{what}:{k}"])), (step, k, what)
+        p, state = new_p, new_state
+        for k in shapes:
+            for what, got, want in (("p", p[k], ref_p[k]),
+                                    ("mu", state["mu"][k],
+                                     ref_state["mu"][k]),
+                                    ("nu", state["nu"][k],
+                                     ref_state["nu"][k])):
+                assert got.shape == want.shape, (step, k, what)
+                assert torch.equal(_bits32(got), _bits32(want)), (
+                    step, k, what)
+
+
+@pytest.mark.gpu
+def test_fused_adamw_into_new_tensors_keeps_older_states(cuda_device):
+    """A state the caller keeps from two steps back still holds its values
+    after two more steps: ``step`` never writes storage it handed out."""
+    shapes = _videomae_leaf_shapes()
+    gen = torch.Generator(device=cuda_device).manual_seed(29)
+    tx = AdamW(5e-5, weight_decay=0.01)
+    p = {k: 0.02 * torch.randn(s, generator=gen, device=cuda_device)
+         for k, s in shapes.items()}
+    state = tx.init(p)
+    history = []
+    for step in range(6):
+        g = {k: torch.randn(s, generator=gen, device=cuda_device) * 1e-3
+             for k, s in shapes.items()}
+        p, state = tx.step(p, g, state)
+        torch.cuda.synchronize()
+        history.append((p, state, {
+            f"{what}:{k}": t.clone() for what, d in (
+                ("p", p), ("mu", state["mu"]), ("nu", state["nu"]))
+            for k, t in d.items()}))
+        if len(history) > 3:
+            history.pop(0)
+        if len(history) == 3:       # the state of two steps back
+            old_p, old_state, kept = history[0]
+            assert old_state["count"] == step - 1
+            for what, d in (("p", old_p), ("mu", old_state["mu"]),
+                            ("nu", old_state["nu"])):
+                for k, t in d.items():
+                    assert torch.equal(_bits32(t), _bits32(
+                        kept[f"{what}:{k}"])), (step, k, what)
+    assert state["count"] == 6
+
+
 def _videomae_steps(device):
     """``cli/pretrain_videomae.py``'s ``build`` and step at head dim 32 (the
     decoder's 64) on 2 clips of 4 frames: ``(tx, state(), step(k))``,
@@ -582,9 +700,9 @@ def test_trainer_steps_equal_the_per_leaf_loop(cuda_device, tmp_path,
     trainer and of CEBRA leave parameters and moments bitwise where the
     per-leaf loop (``AdamW.update`` + ``apply_updates``) takes the same
     gradients. The VTT and CEBRA take ``ops/step.py``'s in-place route (one
-    kernel launch a step); the VideoMAE step, which leaves what it is
-    handed as it was, takes the per-leaf loop and launches none. The
-    gradients are the ones the step hands ``ops/step.update``: the
+    ``step_`` launch a step); the VideoMAE step, which leaves what it is
+    handed as it was, steps into new tensors (one ``step`` launch a step).
+    The gradients are the ones the step hands ``ops/step.update``: the
     attention's backward adds dQ in no fixed order, so two backwards may
     differ."""
     from video_spike_torch.ops import step as ops_step
@@ -597,7 +715,8 @@ def test_trainer_steps_equal_the_per_leaf_loop(cuda_device, tmp_path,
         return real(tx, params, grads, *a, **kw)
 
     monkeypatch.setattr(ops_step, "update", keep)
-    launches = 0 if kind == "videomae" else 1
+    # launches a step of (step, step_)
+    launches = (1, 0) if kind == "videomae" else (0, 1)
     tx, live, step = {
         "videomae": lambda: _videomae_steps(cuda_device),
         "vtt": lambda: _vtt_steps(cuda_device, tmp_path),
@@ -606,10 +725,11 @@ def test_trainer_steps_equal_the_per_leaf_loop(cuda_device, tmp_path,
     ref_p = {k: v.clone() for k, v in live()[0].items()}
     ref_state = ref_tx.init(ref_p)
     for k in range(3):
-        before = fused_adamw.step_.launches
+        before = fused_adamw.step.launches, fused_adamw.step_.launches
         step(k)
         torch.cuda.synchronize()
-        assert fused_adamw.step_.launches == before + launches
+        assert (fused_adamw.step.launches - before[0],
+                fused_adamw.step_.launches - before[1]) == launches
         params, state = live()
         upd, ref_state = ref_tx.update(handed[-1], ref_state, ref_p)
         ref_p = apply_updates(ref_p, upd)
@@ -621,6 +741,53 @@ def test_trainer_steps_equal_the_per_leaf_loop(cuda_device, tmp_path,
                     ("nu", state["nu"][name], ref_state["nu"][name])):
                 assert torch.equal(_bits32(got), _bits32(want)), (
                     k, name, what)
+
+
+@pytest.mark.gpu
+def test_videomae_step_launches_once_a_step_and_builds_one_table(
+        cuda_device):
+    """20 steps of the VideoMAE pretraining step launch the out-of-place
+    AdamW once a step and build its table once (its pointers, new every
+    step, travel in the kernel's parameters): no later step copies a table
+    to the card or waits for it."""
+    _, _, step = _videomae_steps(cuda_device)
+    launches, built = fused_adamw.step.launches, fused_adamw.step.tables_built
+    for k in range(20):
+        step(k)
+    torch.cuda.synchronize()
+    assert fused_adamw.step.launches - launches == 20
+    assert fused_adamw.step.tables_built - built == 1
+
+
+@pytest.mark.gpu
+def test_fused_adamw_into_new_tensors_takes_576_leaves_and_no_more(
+        cuda_device):
+    """Out of place the kernel takes ``MAX_OUT_LEAVES`` (576) leaves, the
+    last one's seven pointers at the end of its parameters, bitwise the
+    per-leaf loop's; one more leaf raises before any launch."""
+    assert fused_adamw.MAX_OUT_LEAVES == 576
+    gen = torch.Generator(device=cuda_device).manual_seed(37)
+    shapes = {f"w{i:03d}": ((i % 7) + 1, 4 + i % 5) for i in range(576)}
+    tx, ref_tx = (AdamW(1e-3, weight_decay=0.01) for _ in range(2))
+    p = {k: torch.randn(s, generator=gen, device=cuda_device)
+         for k, s in shapes.items()}
+    g = {k: torch.randn(s, generator=gen, device=cuda_device)
+         for k, s in shapes.items()}
+    upd, ref_state = ref_tx.update(g, ref_tx.init(p), p)
+    ref_p = apply_updates(p, upd)
+    new_p, state = tx.step(p, g, tx.init(p))
+    torch.cuda.synchronize()
+    for k in shapes:
+        for got, want in ((new_p[k], ref_p[k]),
+                          (state["mu"][k], ref_state["mu"][k]),
+                          (state["nu"][k], ref_state["nu"][k])):
+            assert torch.equal(_bits32(got), _bits32(want)), k
+    launches = fused_adamw.step.launches
+    extra = {**p, "w576": torch.zeros(3, device=cuda_device)}
+    with pytest.raises(ValueError, match="at most 576"):
+        tx.step(extra, {k: torch.ones_like(v) for k, v in extra.items()},
+                tx.init(extra))
+    assert fused_adamw.step.launches == launches
 
 
 # ---------------------------------------------------------------------------

@@ -342,6 +342,7 @@ class AdamW:
         self.weight_decay = weight_decay
         self.mu_dtype = mu_dtype
         self._fused_tables = None    # ops/fused_adamw.py's device table
+        self._fused_out = None       # and its out-of-place tables
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
         return {"count": 0,
@@ -383,6 +384,14 @@ class AdamW:
         and its count. CUDA leaves take one launch of the multi-tensor
         kernel, CPU leaves the per-leaf loop (``ops/fused_adamw.py``)."""
         fused_adamw.step_(self, params, grads, state)
+
+    def step(self, params: Mapping[str, torch.Tensor],
+             grads: Mapping[str, torch.Tensor], state: dict) -> tuple:
+        """``update`` then ``apply_updates`` into new tensors: ``(params,
+        state)``, new dicts, writing nothing it was handed. CUDA leaves
+        take one launch of the multi-tensor kernel into new storage, CPU
+        leaves the per-leaf loop (``ops/fused_adamw.py``)."""
+        return fused_adamw.step(self, params, grads, state)
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,11 @@ phases are ``forward``, ``backward`` (a zero gradient for a leaf the loss
 does not reach, as under ``jax.grad``), ``grad_allreduce`` (with a data
 group) and ``optimizer``, where :func:`update` alone picks the route: a bare
 ``AdamW`` steps the leaves and its moments in place (``AdamW.step_``: one
-launch of ``csrc/fused_adamw.cu`` on a card, the per-leaf loop on the CPU)
-unless ``in_place`` is false; any other optimizer, ``tx.update`` and then
-``apply_updates`` (or ``apply_updates_sr``) into new tensors."""
+launch of ``csrc/fused_adamw.cu`` on a card, the per-leaf loop on the CPU),
+or into new tensors when ``in_place`` is false (``AdamW.step``: one launch
+of the same kernel into new storage, the per-leaf loop on the CPU); any
+other optimizer, ``tx.update`` and then ``apply_updates`` (or
+``apply_updates_sr``) into new tensors."""
 
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from video_spike_torch.parallel.multihost import sum_grads_and_loss
 
 
 def steps_in_place(tx) -> bool:
-    """Whether :func:`update` steps ``tx``'s leaves in place."""
+    """Whether :func:`update` steps ``tx``'s leaves in place, or with
+    ``in_place`` false into new tensors, through the fused AdamW."""
     return type(tx) is AdamW and tx.mu_dtype is None
 
 
@@ -32,9 +35,12 @@ def update(tx, params: Mapping[str, torch.Tensor],
     ``params`` that ``grads`` names: the same dict and state, stepped in
     place, or new ones (see the module's docstring)."""
     trained = {k: params[k] for k in grads}
-    if in_place and steps_in_place(tx):
-        tx.step_(trained, grads, opt_state)
-        return params, opt_state
+    if steps_in_place(tx):
+        if in_place:
+            tx.step_(trained, grads, opt_state)
+            return params, opt_state
+        stepped, opt_state = tx.step(trained, grads, opt_state)
+        return {**params, **stepped}, opt_state
     updates, opt_state = tx.update(grads, opt_state, trained)
     return {**params, **apply_fn(trained, updates, seed)}, opt_state
 
